@@ -1,0 +1,58 @@
+"""Fixed-batch facade over the continuous-batching scheduler (port of
+`repro.serve.engine`).
+
+`ServeEngine.generate` keeps the synchronous API — one batch of prompts
+in, a (B, max_new_tokens) token matrix out — and runs on `Scheduler`:
+every prompt becomes a `Request` and the batch becomes a slot pool of
+width B.  Greedy decoding only (see `serve/sampler.py`).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.device import resolve_device
+from repro_torch.serve.request import Request, SamplingParams, ServeStats
+from repro_torch.serve.scheduler import Scheduler
+
+__all__ = ["ServeEngine", "ServeStats"]
+
+
+class ServeEngine:
+    def __init__(self, cfg, params, max_seq: int = 512, decode_chunk: int = 8,
+                 page: int | None = 64, n_pages: int | str | None = "auto",
+                 packed: str = "auto", device="cuda"):
+        self.cfg = cfg
+        self.params = params
+        self.packed = packed
+        self.max_seq = max_seq
+        self.decode_chunk = decode_chunk
+        self.page = page
+        self.n_pages = n_pages
+        self.device = resolve_device(device)
+        self._sched: Scheduler | None = None
+
+    def _scheduler(self, batch: int) -> Scheduler:
+        if self._sched is None or self._sched.max_slots != batch:
+            self._sched = Scheduler(
+                self.cfg, self.params, max_slots=batch, max_seq=self.max_seq,
+                decode_chunk=self.decode_chunk, page=self.page,
+                n_pages=self.n_pages, packed=self.packed, device=self.device)
+        else:
+            self._sched.reset()
+        return self._sched
+
+    def generate(self, prompts: np.ndarray,          # (B, S_prompt) int32
+                 max_new_tokens: int = 32) -> tuple[np.ndarray, ServeStats]:
+        b = prompts.shape[0]
+        sched = self._scheduler(b)
+        reqs = [Request(rid=i, prompt=np.asarray(prompts[i], np.int32),
+                        params=SamplingParams(max_new_tokens=max_new_tokens))
+                for i in range(b)]
+        sched.run(reqs)
+        # EOS-terminated rows are zero-padded to the fixed output width
+        out = np.zeros((b, max_new_tokens), dtype=np.int32)
+        for r in reqs:
+            out[r.rid, : r.n_generated] = r.tokens
+        return out, dataclasses.replace(sched.stats)
