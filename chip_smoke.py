@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py          # the whole check, one card
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device  — needs CUDA; prints torch/CUDA versions and the card's
                `nvidia-smi` name and power limit.
-  2. build   — compiles both hand-written kernels from src/repro_torch/csrc
-               with nvcc for sm_90a into build/repro_torch_kernels/.
+  2. build   — compiles the three hand-written kernels from
+               src/repro_torch/csrc with nvcc for sm_90a into
+               build/repro_torch_kernels/.
   3. kernels — holds each kernel against its plain PyTorch version on the
-               card at the main path's full-width shapes (stated tolerances)
-               and times kernel, plain version, one library call (timed
-               here only; the port never calls it) and the bytes bound.
-  4. serve   — full-width qwen2-0.5b (24 layers, bf16, random weights from
-               seed 0, HiNM-packed) served by `Scheduler` over the paged KV
-               pool: 8 greedy requests, launch counts asserted; then one
-               decode step profiled on a live 4-slot pool (host vs device
-               time, and the kernels' share of the device step).
-  5. agree   — teacher-forced prefill + 4 paged decode steps with the
-               kernels and with the plain versions: logits must agree.
+               card at the main path's full-width shapes (stated tolerances;
+               nm_select bit for bit) and times kernel, plain version, one
+               library call where there is one (timed here only; the port
+               never calls it) and the bound.
+  4. prune   — full-width qwen2-0.5b (24 layers, bf16, random weights from
+               seed 0): `ops.nm_apply` over its 24 down projections (the
+               nm_select path, launch count asserted); `prune_model`
+               gyro-permutation (OCP + ICP, PRUNE_ITERS iterations) on the
+               card, then noperm: wall times, mean retained saliency (gyro >=
+               noperm - 5e-3), every searched permutation re-checked
+               against its constraints, and hinm_spmm held on gyro-pruned
+               projections (permuted vec_idx).
+  5. serve   — the gyro-pruned, packed model served by `Scheduler` over the
+               paged KV pool: 8 greedy requests, launch counts asserted;
+               then one decode step profiled on a live 4-slot pool (host vs
+               device time, and the kernels' share of the device step).
+  6. agree   — teacher-forced prefill + 4 paged decode steps with the
+               kernels, with the plain versions and with the masked-dense
+               twin (torch.matmul): logits must agree.
 The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.
 """
+import copy
 import json
 import os
 import subprocess
@@ -101,13 +112,14 @@ PROJ = {"q/o": (896, 896, 2), "k/v": (128, 896, 2), "gate/up": (4864, 896, 2),
         "down": (896, 4864, 1)}
 
 
-def k1_case(label, n_out, n_in, b, dtype, v, gen):
+def k1_case(label, p, b, gen):
+    """Hold K1 against its plain version on packed weight `p` at batch `b`
+    (x random, in p's dtype) and time kernel, plain version, `torch.matmul`
+    on the masked-dense weight and the bound."""
     from repro_torch.core import packing
-    from repro_torch.core.types import HiNMConfig
     from repro_torch.kernels import hinm_spmm as hs
 
-    p = packing.pack(torch.randn((n_out, n_in), generator=gen, device="cuda").to(dtype),
-                     HiNMConfig(v=v))
+    dtype, n_out, n_in, v = p.vals.dtype, p.n_out, p.n_in, p.config.v
     x = torch.randn((b, n_in), generator=gen, device="cuda").to(dtype)
     y = hs.hinm_spmm(x, p)
     torch.cuda.synchronize()
@@ -128,13 +140,23 @@ def k1_case(label, n_out, n_in, b, dtype, v, gen):
     line = dict(case=label, shape=[n_out, n_in], B=b, dtype=str(dtype).split(".")[-1],
                 V=v, max_abs_err=err, max_rel_err=rel, tol=tol, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-    print(f"K1 {label:8s} {n_out}x{n_in} B={b:<4d} {line['dtype']:8s} V={v:<2d} "
+    print(f"K1 {label:12s} {n_out}x{n_in} B={b:<4d} {line['dtype']:8s} V={v:<2d} "
           f"rel_err={rel:.2e} (tol {tol:.0e}) kernel {ms*1e3:8.1f} us  plain "
           f"{plain_ms*1e3:8.1f} us  matmul {lib_ms*1e3:8.1f} us  bound "
           f"{b_ms*1e3:7.1f} us ({b_by})", flush=True)
     if not rel <= tol:
         raise AssertionError(f"K1 {label} B={b}: relative error {rel} > {tol}")
     return line
+
+
+def k1_random(label, n_out, n_in, b, dtype, v, gen):
+    """K1 on a random weight packed with no permutation (ascending vec_idx)."""
+    from repro_torch.core import packing
+    from repro_torch.core.types import HiNMConfig
+
+    p = packing.pack(torch.randn((n_out, n_in), generator=gen, device="cuda").to(dtype),
+                     HiNMConfig(v=v))
+    return k1_case(label, p, b, gen)
 
 
 def paged_case(b, s, kvh, g, hd, page, n_bt, n_pages, dtype, seed, sweep=2):
@@ -231,14 +253,60 @@ def k2_case(s, window, dtype, seed):
     return line
 
 
+# K3: every full-width projection shape of the model (HiNM orientation,
+# N:M along the last axis), both dtypes, every (N, M) the reference tests
+K3_SHAPES = ((896, 896), (896, 128), (896, 4864), (4864, 896))
+K3_NM = ((2, 4), (1, 4), (1, 2))
+
+
+def k3_input(shape, dtype, gen):
+    """Random weight whose first rows hold exact ties: all equal values,
+    +0.0 against -0.0, and x against -x (equal magnitudes)."""
+    w = torch.randn(shape, generator=gen, device="cuda")
+    cols = shape[-1]
+    w[0] = 0.75
+    w[1] = torch.where(torch.arange(cols, device="cuda") % 3 == 0, -0.0, 0.0)
+    w[2] = torch.where(torch.arange(cols, device="cuda") % 2 == 0, 1.5, -1.5)
+    return w.to(dtype)
+
+
+def k3_case(label, w, nn, mm, run=None):
+    """Hold K3 bit for bit against its plain version and time both; `run`
+    is the call under test (default: the kernel wrapper on `w`)."""
+    from repro_torch.kernels import nm_select as nms
+
+    run = run or (lambda: nms.nm_select(w, nn, mm))
+    out = run()
+    torch.cuda.synchronize()
+    ref = nms.nm_select_ref(w, nn, mm)
+    torch.cuda.synchronize()
+    bits = torch.int16 if w.dtype == torch.bfloat16 else torch.int32
+    equal = bool(torch.equal(out.view(bits), ref.view(bits)))
+    err = float((out.float() - ref.float()).abs().max())
+    ms = time_ms(run)
+    plain_ms = time_ms(lambda: nms.nm_select_ref(w, nn, mm))
+    b_ms, b_by = bound(2 * w.numel() * w.element_size(), 0, w.dtype)
+    line = dict(case=label, shape=list(w.shape), N=nn, M=mm,
+                dtype=str(w.dtype).split(".")[-1], bit_equal=equal, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    print(f"K3 {label:10s} {'x'.join(map(str, w.shape)):14s} {nn}:{mm} {line['dtype']:8s} "
+          f"bit-equal {equal}  kernel {ms*1e3:8.1f} us  plain {plain_ms*1e3:9.1f} us  "
+          f"bound {b_ms*1e3:7.1f} us ({b_by}; {b_ms / ms:.1%} of the kernel's time)",
+          flush=True)
+    if not equal:
+        raise AssertionError(f"K3 {label} {tuple(w.shape)} {nn}:{mm} {w.dtype}: not "
+                             f"bit-equal to the plain version (max abs err {err})")
+    return line
+
+
 def kernels_phase():
     gen = torch.Generator(device="cuda").manual_seed(1)
     k1 = []
     for label, (n_out, n_in, _) in PROJ.items():
         for b in (4, 512):
-            k1.append(k1_case(label, n_out, n_in, b, torch.bfloat16, 32, gen))
-    k1.append(k1_case("gate/up", 4864, 896, 16, torch.float32, 32, gen))
-    k1.append(k1_case("q/o", 896, 896, 4, torch.bfloat16, 8, gen))
+            k1.append(k1_random(label, n_out, n_in, b, torch.bfloat16, 32, gen))
+    k1.append(k1_random("gate/up", 4864, 896, 16, torch.float32, 32, gen))
+    k1.append(k1_random("q/o", 896, 896, 4, torch.bfloat16, 8, gen))
     layer = k1_layer(gen)
     k2 = []
     seed = 0
@@ -247,7 +315,10 @@ def kernels_phase():
             for window in (0, 64):
                 k2.append(k2_case(s, window, dtype, seed))
                 seed += 1
-    return k1, layer, k2
+    k3 = [k3_case("random", k3_input(shape, dtype, gen), nn, mm)
+          for dtype in (torch.bfloat16, torch.float32) for shape in K3_SHAPES
+          for nn, mm in K3_NM]
+    return k1, layer, k2, k3
 
 
 def k1_layer(gen):
@@ -300,7 +371,7 @@ def k1_layer(gen):
 
 
 # --------------------------------------------------------------------------
-# phases 4-5: the main path at full width
+# phases 4-6: the main path at full width
 # --------------------------------------------------------------------------
 
 def full_model():
@@ -316,6 +387,100 @@ def full_model():
           f"{cfg.vocab_padded}, {cfg.dtype}, HiNM {cfg.hinm}; init "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return cfg, model
+
+
+# the reference's bound for gyro against noperm (tests/test_prune_model.py:84)
+GYRO_MARGIN = 5e-3
+# (ocp_iters, icp_iters) of the prune phase, cut from prune_model's 8/8,
+# whose full-width search took up to 10.6 minutes on the H100 (PERF.md);
+# width and depth stay full
+PRUNE_ITERS = (4, 4)
+
+
+def nm_apply_path(model):
+    """K3's path, the public entry point `ops.nm_apply`: N:M select over
+    the stack of all L down projections in HiNM orientation, (L, 896,
+    4864) bf16 — the mask refresh a gradual-pruning step runs.  Counts set
+    to 0 just before and read just after; then held bit for bit against
+    the plain version and timed."""
+    from repro_torch.kernels import nm_select as nms
+    from repro_torch.kernels import ops
+
+    stack = torch.stack([blk.mlp.wd.w.T for blk in model.blocks]).contiguous()
+    torch.cuda.synchronize()
+    nms.nm_select.launches = 0
+    ops.nm_apply(stack)
+    torch.cuda.synchronize()
+    launches = nms.nm_select.launches
+    print(f"ops.nm_apply over {tuple(stack.shape)} {stack.dtype}: nm_select launched "
+          f"{launches} time(s)")
+    if launches < 1:
+        raise AssertionError("ops.nm_apply did not launch nm_select on a CUDA tensor")
+    line = k3_case("nm_apply", stack, 2, 4, run=lambda: ops.nm_apply(stack))
+    return launches, line
+
+
+def check_perms(cfg, report):
+    """Every out_perm the engine returned, re-checked by the engine's own
+    validator against the graph's constraints.  Returns the number
+    checked."""
+    from repro_torch.models import zoo
+    from repro_torch.perm.engine import validate_out_perm
+
+    graph = zoo.perm_graph(cfg).containers[0].graph
+    for what, perm in report.out_perms.items():
+        validate_out_perm(graph.nodes[what.split("/", 1)[1]], graph, perm, what)
+    expected = cfg.n_layers * len(graph.nodes)
+    if len(report.out_perms) != expected:
+        raise AssertionError(f"{len(report.out_perms)} searched perms, expected {expected}")
+    return expected
+
+
+def prune_phase(cfg, model, gen):
+    """Gyro-permutation pruning of the full-width model on the card
+    (`prune_model` at PRUNE_ITERS), then noperm on the same weights; K1
+    held on gyro-pruned (permuted vec_idx) projections."""
+    from repro_torch.models.module import get_path
+    from repro_torch.train import pruning
+
+    out = {}
+    for method in ("gyro", "noperm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        permuted, masks, packed, rep = pruning.prune_model(
+            model, cfg, method=method, rng=np.random.default_rng(0), ocp_iters=PRUNE_ITERS[0],
+            icp_iters=PRUNE_ITERS[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ph = rep.phase_seconds
+        kinds = "  ".join(f"{path} {sec:.1f} s" for path, sec in rep.item_seconds.items())
+        print(f"prune_model(method={method!r}, ocp_iters={PRUNE_ITERS[0]}, icp_iters="
+              f"{PRUNE_ITERS[1]}): {wall:.1f} s "
+              f"(search {ph['search']:.1f} s, realize {ph['realize']:.1f} s); "
+              f"{rep.searches_run} searches; mean retained saliency "
+              f"{rep.mean_retained:.6f}", flush=True)
+        print(f"  search host seconds per projection kind, summed over "
+              f"{cfg.n_layers} layers: {kinds}")
+        out[method] = dict(packed=packed, masks=masks, report=rep, wall_s=wall)
+        del permuted
+    gyro, noperm = out["gyro"]["report"], out["noperm"]["report"]
+    n = check_perms(cfg, gyro)
+    print(f"gyro {gyro.mean_retained:.6f} vs noperm {noperm.mean_retained:.6f} mean "
+          f"retained (gain {gyro.mean_retained - noperm.mean_retained:+.6f}); {n} "
+          f"searched perms pass their constraint checks")
+    if not gyro.mean_retained >= noperm.mean_retained - GYRO_MARGIN:
+        raise AssertionError(f"gyro retained {gyro.mean_retained} < noperm "
+                             f"{noperm.mean_retained} - {GYRO_MARGIN}")
+    packed = out["gyro"]["packed"]
+    k1 = []
+    for label, path in (("gyro wd", "mlp/wd"), ("gyro wg", "mlp/wg")):
+        p = get_path(packed.blocks[0], path).w
+        vi = p.vec_idx
+        if bool((vi[:, 1:] > vi[:, :-1]).all()):
+            raise AssertionError(f"{label}: vec_idx is ascending, ICP permuted nothing")
+        for b in (4, 512):
+            k1.append(k1_case(label, p, b, gen))
+    return packed, out, k1
 
 
 # prompts of the serve workload that the step profile keeps live in the pool
@@ -432,12 +597,11 @@ def serve_phase(cfg, model):
     from repro_torch.serve import Request, SamplingParams, Scheduler
 
     t0 = time.perf_counter()
-    # packs every planned projection in place (the model stays packed for
-    # the agree phase)
-    sched = Scheduler(cfg, model, max_slots=4, max_seq=256, page=16, decode_chunk=8,
-                      packed="pack")
+    # `model` arrives gyro-pruned and packed by the prune phase
+    sched = Scheduler(cfg, model, max_slots=4, max_seq=256, page=16, decode_chunk=8)
     torch.cuda.synchronize()
-    print(f"Scheduler(packed='pack') built in {time.perf_counter() - t0:.1f} s")
+    print(f"Scheduler built in {time.perf_counter() - t0:.1f} s on the gyro-pruned, "
+          f"packed model")
     pb, db = sched.stats.packed_param_bytes, sched.stats.dense_param_bytes
     print(f"weights: {pb / 1e6:.1f} MB packed vs {db / 1e6:.1f} MB dense-equivalent; "
           f"KV pool {sched.kv.pool_bytes() / 1e6:.1f} MB ({sched.kv.n_pages} pages)")
@@ -497,36 +661,55 @@ def serve_phase(cfg, model):
 
 
 @torch.no_grad()
-def agree_phase(cfg, model):
+def teacher_forced_logits(cfg, model, prompt, forced, backend):
+    """Prefill `prompt`, then paged decode steps fed the `forced` tokens:
+    the stacked logits (1 + steps, B, vocab) in f32."""
     from repro_torch.models import zoo
     from repro_torch.serve.kv import SlotKVCache
+
+    b, n_prompt = prompt.shape
+    kv = SlotKVCache(cfg, b, 256, page=16, n_pages=None, device="cuda")
+    stripe = kv.template(b)
+    last = zoo.prefill(model, cfg, prompt, stripe, backend=backend)
+    logits = [zoo.logits_fn(model, cfg, last)]
+    for row in range(b):
+        kv.insert(kv.acquire(), stripe, n_prompt, row=row, reserve=n_prompt + len(forced))
+    for tok in forced:
+        logits.append(zoo.decode_step(model, cfg, tok, kv.cache, backend=backend))
+    return torch.stack(logits)[..., : cfg.vocab].float()
+
+
+def compare_logits(what, a, r):
+    rel = float((a - r).abs().max()) / float(r.abs().max())
+    match = float((a.argmax(-1) == r.argmax(-1)).float().mean())
+    print(f"{what}: max |dlogit| / max|logit| = {rel:.2e} (tol {AGREE_TOL:.0e}); "
+          f"greedy-token match {match:.3f} over {a.shape[0] * a.shape[1]} positions")
+    if not rel <= AGREE_TOL:
+        raise AssertionError(f"{what}: logits disagree: {rel} > {AGREE_TOL}")
+    return rel, match
+
+
+@torch.no_grad()
+def agree_phase(cfg, model):
+    """The served (gyro-pruned, packed) model held twice: kernels against
+    the plain versions, and against its masked-dense twin (every packed
+    projection unpacked to a dense weight, plain `torch.matmul`)."""
+    from repro_torch.models import zoo
 
     rng = np.random.default_rng(7)
     b, n_prompt, n_dec = 2, 40, 4
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, n_prompt)).astype(np.int32)).cuda()
     forced = torch.from_numpy(rng.integers(0, cfg.vocab, (n_dec, b, 1)).astype(np.int32)).cuda()
-    outs = {}
-    for backend in ("auto", "torch"):
-        kv = SlotKVCache(cfg, b, 256, page=16, n_pages=None, device="cuda")
-        stripe = kv.template(b)
-        last = zoo.prefill(model, cfg, prompt, stripe, backend=backend)
-        logits = [zoo.logits_fn(model, cfg, last)]
-        for row in range(b):
-            kv.insert(kv.acquire(), stripe, n_prompt, row=row, reserve=n_prompt + n_dec)
-        for i in range(n_dec):
-            logits.append(zoo.decode_step(model, cfg, forced[i], kv.cache, backend=backend))
-        outs[backend] = torch.stack(logits)[..., : cfg.vocab].float()
-    a, r = outs["auto"], outs["torch"]
+    a = teacher_forced_logits(cfg, model, prompt, forced, "auto")
     if not bool(torch.isfinite(a).all()):
         raise AssertionError("non-finite logits on the kernel path")
-    rel = float((a - r).abs().max()) / float(r.abs().max())
-    match = float((a.argmax(-1) == r.argmax(-1)).float().mean())
-    print(f"kernels vs plain versions, prefill + {n_dec} paged decode steps: max "
-          f"|dlogit| / max|logit| = {rel:.2e} (tol {AGREE_TOL:.0e}); greedy-token "
-          f"match {match:.3f} over {a.shape[0] * b} positions")
-    if not rel <= AGREE_TOL:
-        raise AssertionError(f"kernel and plain logits disagree: {rel} > {AGREE_TOL}")
-    return rel, match
+    plain = compare_logits(f"kernels vs plain versions, prefill + {n_dec} paged decode "
+                           "steps", a, teacher_forced_logits(cfg, model, prompt, forced,
+                                                             "torch"))
+    twin = zoo.unpack_params(cfg, copy.deepcopy(model))
+    dense = compare_logits("kernels vs the masked-dense twin (torch.matmul)", a,
+                           teacher_forced_logits(cfg, twin, prompt, forced, "auto"))
+    return plain, dense
 
 
 def main() -> int:
@@ -545,21 +728,28 @@ def main() -> int:
 
     phase("2. build")
     t0 = time.perf_counter()
-    logs = build.build_all(["hinm_spmm", "paged_attn"])
-    print(f"built hinm_spmm, paged_attn for sm_90a in {time.perf_counter() - t0:.1f} s")
+    logs = build.build_all()
+    print(f"built {', '.join(logs)} for sm_90a in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
 
     phase("3. kernels")
-    k1, layer, k2 = kernels_phase()
+    k1, layer, k2, k3 = kernels_phase()
 
-    phase("4. serve")
+    phase("4. prune")
     cfg, model = full_model()
+    k3_launches, k3_path = nm_apply_path(model)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    model, pruned, k1_gyro = prune_phase(cfg, model, gen)
+    k3.append(k3_path)
+    k1 += k1_gyro
+
+    phase("5. serve")
     served = serve_phase(cfg, model)
 
-    phase("5. agree")
+    phase("6. agree")
     agree_phase(cfg, model)
 
     k2_rep = next(c for c in k2 if c["case"] == "s=1 window=0" and c["dtype"] == "bfloat16")
@@ -581,9 +771,20 @@ def main() -> int:
                    "16 pages of 16, bf16",
              **{k: k2_rep[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")}, cases=k2),
+        dict(name="nm_select", route="cuda", source="src/repro_torch/csrc/nm_select.cu",
+             replaces="src/repro/kernels/nm_select.py:38", launches=k3_launches,
+             timed="ops.nm_apply over the model's 24 down projections, (24, 896, 4864) "
+                   "bf16, 2:4",
+             max_abs_err=max(c["max_abs_err"] for c in k3),
+             **{k: k3_path[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by")}, cases=k3),
     ]
     print()
     prof = served["profile"]
+    g, n = pruned["gyro"], pruned["noperm"]
+    print(f"prune: gyro {g['wall_s']:.1f} s (search {g['report'].phase_seconds['search']:.1f}"
+          f" s), mean retained {g['report'].mean_retained:.6f} vs noperm "
+          f"{n['report'].mean_retained:.6f}")
     print(f"serve: {served['decode_tok_s']:.1f} decode tok/s, p50 decode step "
           f"{served['served_p50_step_ms']:.2f} ms; live-pool step: wall "
           f"{prof['wall_ms']:.2f} ms, host enqueue {prof['host_ms']:.2f} ms, device "

@@ -5,7 +5,10 @@
 are layer-stacked ``(L, ...)``, possibly with packed leaves whose fields
 are numpy arrays.  Packed leaves are read by duck typing (``vals``,
 ``vec_idx``, ``nm_idx``, ``n_out``, ``n_in``, ``config.{v,n,m,
-vector_sparsity}``), so the port never imports the reference.
+vector_sparsity}``), so the port never imports the reference.  The
+reference's `prune_model` outputs cross the same way: its permuted params
+and packed tree through `params_from_numpy`, its masks through
+`masks_from_numpy`.
 """
 from __future__ import annotations
 
@@ -74,3 +77,15 @@ def params_from_numpy(cfg, tree: dict, device="cuda") -> transformer.Transformer
         M.Linear(to_tensor(head["w"], device),
                  None if head.get("b") is None else to_tensor(head["b"], device)),
     )
+
+
+def masks_from_numpy(cfg, tree: dict, device="cuda") -> list[dict[str, torch.Tensor]]:
+    """The reference's `prune_model` masks (after
+    ``jax.tree.map(np.asarray, masks)``) as the port's: one {path:
+    stored-orientation (n_in, n_out) bool mask} dict per block."""
+    device = resolve_device(device)
+    blk = tree["blocks"]
+    return [{f"{grp}/{name}": to_tensor(node["w"][i], device)
+             for grp in ("attn", "mlp") for name, node in blk[grp].items()
+             if node.get("w") is not None}
+            for i in range(cfg.n_layers)]

@@ -84,3 +84,19 @@ def hinm_mask_from_columns(
 def hinm_mask(sal: torch.Tensor, cfg: HiNMConfig) -> torch.Tensor:
     """HiNM keep-mask in the current layout (no permutation search)."""
     return hinm_mask_from_columns(sal, kept_column_ids(sal, cfg), cfg)
+
+
+def retained_saliency(sal: torch.Tensor, cfg: HiNMConfig) -> torch.Tensor:
+    """||M . rho|| for the current layout — the objective of Eq. (1)."""
+    return torch.sum(sal * hinm_mask(sal, cfg))
+
+
+def unstructured_mask(sal: torch.Tensor, sparsity: float) -> torch.Tensor:
+    """Global magnitude top-k keep-mask (the paper's 'Unstructured')."""
+    keep = max(1, int(round(sal.numel() * (1.0 - sparsity))))
+    thresh = torch.topk(sal.reshape(-1), keep).values[-1]
+    return sal >= thresh
+
+
+def apply_mask(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return w * mask.to(w.dtype)

@@ -95,3 +95,18 @@ class PackedHiNM:
     def dense_bytes(self) -> int:
         lead = int(np.prod(self.vals.shape[:-3])) if self.vals.dim() > 3 else 1
         return int(lead * self.n_out * self.n_in * self.vals.element_size())
+
+
+@dataclasses.dataclass
+class GyroResult:
+    """Output of a gyro-permutation search for one weight matrix."""
+
+    out_perm: np.ndarray          # (n_out,) permutation of output channels
+    col_order: np.ndarray         # (T, K) per-tile kept-column order (= vec_idx)
+    retained: float               # final retained saliency  ||M . rho||
+    total: float                  # total saliency  ||rho||
+    history: list[float] = dataclasses.field(default_factory=list)
+
+    @property
+    def retained_fraction(self) -> float:
+        return float(self.retained / max(self.total, 1e-30))

@@ -24,6 +24,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# every hand-written kernel of the port, by source name
+KERNELS = ("hinm_spmm", "paged_attn", "nm_select")
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -59,9 +62,9 @@ def _build(name: str) -> str:
     return res.stdout + res.stderr
 
 
-def build_all(names) -> dict[str, str]:
-    """Compile the named kernels, one nvcc per source, all at once; returns
-    each build's log."""
+def build_all(names=KERNELS) -> dict[str, str]:
+    """Compile the named kernels (default: all of them), one nvcc per
+    source, all at once; returns each build's log."""
     names = list(names)
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         return dict(zip(names, ex.map(_build, names)))

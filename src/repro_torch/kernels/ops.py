@@ -1,5 +1,10 @@
 """Public dispatch for the port's kernels (port of `repro.kernels.ops`).
 
+Behind it: `hinm_matmul` -> K1 ``hinm_spmm`` (every packed projection),
+`paged_attention` -> K2 ``paged_decode_attn`` (paged decode attention),
+`nm_apply` -> K3 ``nm_select`` (N:M magnitude select; only this public
+entry point reaches it, as in the reference).
+
 ``backend="auto"`` launches the CUDA kernel for a CUDA tensor and takes
 the plain PyTorch version for a CPU tensor; the choice rests on where the
 tensor lies and nothing else.  ``"torch"`` (and ``"oracle"`` for the
@@ -14,6 +19,7 @@ import torch
 
 from repro_torch.core.types import PackedHiNM
 from repro_torch.kernels import hinm_spmm as _spmm
+from repro_torch.kernels import nm_select as _nmsel
 from repro_torch.kernels import paged_attn as _pattn
 
 BACKENDS = ("auto", "cuda", "torch")
@@ -61,3 +67,15 @@ def paged_attention(
                                         window=window)
     return _pattn.paged_decode_attn_ref(q, k_pool, v_pool, kpos_pool, bt, q_pos,
                                         window=window)
+
+
+def nm_apply(w: torch.Tensor, nn: int = 2, mm: int = 4, backend: str = "auto") -> torch.Tensor:
+    """Apply N:M magnitude selection along the last axis (any leading dims)."""
+    if w.shape[-1] % mm != 0:
+        raise ValueError(f"cols={w.shape[-1]} % M={mm} != 0")
+    wb = w.reshape(-1, w.shape[-1])
+    if _resolve(backend, w) == "cuda":
+        out = _nmsel.nm_select(wb, nn, mm)
+    else:
+        out = _nmsel.nm_select_ref(wb, nn, mm)
+    return out.reshape(w.shape)

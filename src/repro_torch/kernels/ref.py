@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import packing
+from repro_torch.core.sparsity import _ranks_desc
 from repro_torch.core.types import PackedHiNM
 
 
@@ -63,3 +64,15 @@ def hinm_spmm_xla(x: torch.Tensor, p: PackedHiNM,
                          p.nm_idx[i:i + tc], cfg.m, cfg.n, x.dtype)
           for i in range(0, t, tc)]                            # (B, tc, V) each
     return torch.cat(ys, dim=1).reshape(b, p.n_out)
+
+
+def nm_select_ref(w: torch.Tensor, n: int = 2, m: int = 4) -> torch.Tensor:
+    """Plain version of the N:M select: keep the top-N of each M group
+    along the last axis by |w| (stable: ties to the lower index), +0
+    elsewhere; kept values pass through bit for bit."""
+    shape = w.shape
+    if shape[-1] % m != 0:
+        raise ValueError(f"cols={shape[-1]} % M={m} != 0")
+    g = w.reshape(shape[:-1] + (shape[-1] // m, m))
+    return torch.where(_ranks_desc(g.abs()) < n, g, torch.zeros((), dtype=w.dtype,
+                                                                device=w.device)).reshape(shape)

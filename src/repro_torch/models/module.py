@@ -22,8 +22,10 @@ from repro_torch.kernels import ops as kops
 @dataclasses.dataclass(frozen=True)
 class PruneSpec:
     """One prunable projection and its permutation coupling (see
-    `repro.models.module.PruneSpec`; the port packs without permutation,
-    so only `path` and `tied` are read here)."""
+    `repro.models.module.PruneSpec`): `perm.graph.compile_layer_graph`
+    reads every field — `row_blocks` and `can_permute_rows` bound its OCP
+    search, `consumers` and `tied` become the edges its permutation is
+    folded along."""
 
     path: str
     row_blocks: int = 1

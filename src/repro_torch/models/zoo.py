@@ -6,7 +6,7 @@
   make_cache(cfg, batch, max_seq, ...)    -> decode cache
   prefill / decode_step                   -> serving
   pack_params / unpack_params             -> serve-time weight format
-  hinm_plan(cfg)                          -> prune specs
+  hinm_plan(cfg) / perm_graph(cfg)        -> prune specs / their PermGraph
 """
 from __future__ import annotations
 
@@ -72,23 +72,28 @@ def hinm_plan(cfg):
     return model_for(cfg).hinm_plan(cfg)
 
 
+def perm_graph(cfg):
+    """The compiled PermGraph of this architecture's `hinm_plan`."""
+    from repro_torch.perm.graph import compile_model_graph
+
+    return compile_model_graph(cfg)
+
+
 def _planned_linears(cfg, model):
-    """Every planned projection (tied partners included), layer by layer —
-    the port's stand-in for `perm_graph(cfg).instances()`."""
-    paths = []
-    for spec in hinm_plan(cfg):
-        paths += [spec.path, *spec.tied]
-    for blk in model.blocks:
-        for path in paths:
-            yield M.get_path(blk, path)
+    """Every planned projection (tied partners included), layer by layer."""
+    for key, node in perm_graph(cfg).instances():
+        for blk in getattr(model, key):
+            yield M.get_path(blk, node.path)
 
 
 def pack_params(cfg, model):
     """Pack every planned projection's dense weight into PackedHiNM, in
     place, and return the model: from then on ``hinm_spmm`` runs the
     q/k/v/o and MLP projections of prefill and decode.  Already-packed
-    weights pass through.  Packing applies no permutation, so a weight that
-    is not already HiNM-sparse is magnitude-pruned by the packing itself."""
+    weights pass through: a model pruned by `train.pruning.prune_model`
+    arrives permuted and packed.  A dense weight is packed here with no
+    permutation — the paper's "noperm" route — so one that is not already
+    HiNM-sparse is magnitude-pruned by the packing itself."""
     for lin in _planned_linears(cfg, model):
         if not isinstance(lin.w, PackedHiNM):
             lin.set_weight(packing.pack(lin.w.T, cfg.hinm))  # stored (n_in, n_out)

@@ -198,7 +198,10 @@ def test_port_sources_import_neither_jax_nor_repro():
 
 
 def test_port_import_leaves_jax_and_repro_unloaded():
-    code = ("import sys, repro_torch.serve, repro_torch.convert, repro_torch.kernels.ops\n"
+    code = ("import sys, repro_torch.serve, repro_torch.convert, repro_torch.kernels.ops, "
+            "repro_torch.kernels.nm_select, repro_torch.train.pruning, repro_torch.perm, "
+            "repro_torch.core.api, repro_torch.core.baselines, repro_torch.core.gyro, "
+            "repro_torch.core.hungarian, repro_torch.core.saliency\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n")

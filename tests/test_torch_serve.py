@@ -45,12 +45,16 @@ def _requests(mod, prompts):
 
 @pytest.fixture(scope="module")
 def reference_streams(setup):
-    """The reference scheduler's greedy streams, once per policy."""
+    """The reference scheduler's greedy streams, once per policy: one
+    scheduler (one set of compiled steps), reset and switched to the static
+    policy for the second run."""
     jcfg, _, packed, _, prompts = setup
     out = {}
+    sched = jserve.Scheduler(jcfg, packed, prefix_share=False, async_admission=False,
+                             **SCHED)
     for policy in ("continuous", "static"):
-        sched = jserve.Scheduler(jcfg, packed, policy=policy, prefix_share=False,
-                                 async_admission=False, **SCHED)
+        sched.reset()
+        sched.policy = policy
         reqs = _requests(jserve, prompts)
         sched.run(reqs)
         out[policy] = [r.tokens for r in reqs]
