@@ -114,8 +114,9 @@ PROJ = {"q/o": (896, 896, 2), "k/v": (128, 896, 2), "gate/up": (4864, 896, 2),
 
 def k1_case(label, p, b, gen):
     """Hold K1 against its plain version on packed weight `p` at batch `b`
-    (x random, in p's dtype) and time kernel, plain version, `torch.matmul`
-    on the masked-dense weight and the bound."""
+    (x random, in p's dtype) and time kernel (the variant its dispatch
+    picks), plain version, `torch.matmul` on the masked-dense weight and
+    the bound."""
     from repro_torch.core import packing
     from repro_torch.kernels import hinm_spmm as hs
 
@@ -137,11 +138,12 @@ def k1_case(label, p, b, gen):
     ops = 2.0 * p.vals.numel() * b
     b_ms, b_by = bound(nbytes, ops, dtype)
     tol = K1_TOL[dtype]
+    variant = hs.variant(b, p, dtype)
     line = dict(case=label, shape=[n_out, n_in], B=b, dtype=str(dtype).split(".")[-1],
-                V=v, max_abs_err=err, max_rel_err=rel, tol=tol, ms=ms,
+                V=v, variant=variant, max_abs_err=err, max_rel_err=rel, tol=tol, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
     print(f"K1 {label:12s} {n_out}x{n_in} B={b:<4d} {line['dtype']:8s} V={v:<2d} "
-          f"rel_err={rel:.2e} (tol {tol:.0e}) kernel {ms*1e3:8.1f} us  plain "
+          f"{variant:4s} rel_err={rel:.2e} (tol {tol:.0e}) kernel {ms*1e3:8.1f} us  plain "
           f"{plain_ms*1e3:8.1f} us  matmul {lib_ms*1e3:8.1f} us  bound "
           f"{b_ms*1e3:7.1f} us ({b_by})", flush=True)
     if not rel <= tol:
@@ -299,15 +301,30 @@ def k3_case(label, w, nn, mm, run=None):
     return line
 
 
+# the C dispatch's crossover: bf16 batches up to it run the "rows" variant,
+# larger ones "mma" (csrc/hinm_spmm.cu ROWS_MAX_B; chosen from k1_layer's
+# crossover sweep)
+K1_CROSSOVER = 8
+
+
 def kernels_phase():
     gen = torch.Generator(device="cuda").manual_seed(1)
     k1 = []
+    # both variants and their edges: decode, the crossover, prefill buckets
     for label, (n_out, n_in, _) in PROJ.items():
-        for b in (4, 512):
+        wide = label in ("gate/up", "down")
+        for b in ((1, 4, K1_CROSSOVER, K1_CROSSOVER + 1, 16, 64, 512) if wide else (4, 512)):
             k1.append(k1_random(label, n_out, n_in, b, torch.bfloat16, 32, gen))
-    k1.append(k1_random("gate/up", 4864, 896, 16, torch.float32, 32, gen))
-    k1.append(k1_random("q/o", 896, 896, 4, torch.bfloat16, 8, gen))
-    layer = k1_layer(gen)
+    for b in (16, 512):                 # f32 runs "rows" at every batch
+        k1.append(k1_random("gate/up", 4864, 896, b, torch.float32, 32, gen))
+    for b in (4, 512):                  # V = 8 (reduced configs): N = 8 on the MMA
+        k1.append(k1_random("q/o", 896, 896, b, torch.bfloat16, 8, gen))
+    for b in (4, 129):                  # a CPU-sweep shape: Kn = 12, rows not 16-byte aligned
+        k1.append(k1_random("unaligned", 64, 48, b, torch.bfloat16, 8, gen))
+    at = {c["B"]: c["variant"] for c in k1 if c["case"] == "down" and c["dtype"] == "bfloat16"}
+    if (at[K1_CROSSOVER], at[K1_CROSSOVER + 1]) != ("rows", "mma"):
+        raise AssertionError(f"K1 dispatch crossover is not K1_CROSSOVER = {K1_CROSSOVER}: {at}")
+    layer, crossover = k1_layer(gen)
     k2 = []
     seed = 0
     for dtype in (torch.bfloat16, torch.float32):
@@ -318,14 +335,16 @@ def kernels_phase():
     k3 = [k3_case("random", k3_input(shape, dtype, gen), nn, mm)
           for dtype in (torch.bfloat16, torch.float32) for shape in K3_SHAPES
           for nn, mm in K3_NM]
-    return k1, layer, k2, k3
+    return k1, layer, crossover, k2, k3
 
 
 def k1_layer(gen):
     """One decode layer's seven projections (q, k, v, o, gate, up, down) at
     B = 4 in bf16, V = 32: checked, then timed as one call of seven
     launches (kernel, plain version, and `torch.matmul` on the masked-dense
-    weights); the bound counts each distinct input once."""
+    weights); the bound counts each distinct input once.  Then the
+    crossover: the same seven projections at B around K1_CROSSOVER, timed
+    through each variant."""
     from repro_torch.core import packing
     from repro_torch.core.types import HiNMConfig
     from repro_torch.kernels import hinm_spmm as hs
@@ -360,14 +379,24 @@ def k1_layer(gen):
     ops = sum(2.0 * p.vals.numel() * b for p in ps)
     b_ms, b_by = bound(nbytes, ops, dt)
     tol = K1_TOL[dt]
-    print(f"K1 one decode layer (7 projections, B={b}, bf16, V=32, one call): "
-          f"rel_err={rel:.2e} (tol {tol:.0e}) kernel {ms*1e3:8.1f} us  plain "
-          f"{plain_ms*1e3:8.1f} us  matmul {lib_ms*1e3:8.1f} us  bound "
-          f"{b_ms*1e3:7.2f} us ({b_by})", flush=True)
+    print(f"K1 one decode layer (7 projections, B={b}, bf16, V=32, one call, "
+          f"{hs.variant(b, ps[0], dt)}): rel_err={rel:.2e} (tol {tol:.0e}) kernel "
+          f"{ms*1e3:8.1f} us  plain {plain_ms*1e3:8.1f} us  matmul {lib_ms*1e3:8.1f} us  "
+          f"bound {b_ms*1e3:7.2f} us ({b_by})", flush=True)
     if not rel <= tol:
         raise AssertionError(f"K1 decode layer: relative error {rel} > {tol}")
+    crossover = {}
+    for bx in (4, K1_CROSSOVER, K1_CROSSOVER + 1, 16, 24):
+        xs_b = {n: torch.randn((bx, n), generator=gen, device="cuda").to(dt)
+                for n in (896, 4864)}
+        row = {var: time_ms(lambda: [hs.hinm_spmm(xs_b[p.n_in], p, variant=var) for p in ps])
+               for var in hs.VARIANTS}
+        crossover[bx] = row
+        print(f"K1 crossover: one layer's 7 projections at B={bx:<3d} rows "
+              f"{row['rows']*1e3:7.1f} us  mma {row['mma']*1e3:7.1f} us  (dispatch: "
+              f"{hs.variant(bx, ps[0], dt)})", flush=True)
     return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by), crossover
 
 
 # --------------------------------------------------------------------------
@@ -736,7 +765,7 @@ def main() -> int:
                 print(f"  {name}: {ln.strip()}")
 
     phase("3. kernels")
-    k1, layer, k2, k3 = kernels_phase()
+    k1, layer, crossover, k2, k3 = kernels_phase()
 
     phase("4. prune")
     cfg, model = full_model()
@@ -757,7 +786,8 @@ def main() -> int:
         dict(name="hinm_spmm", route="cuda", source="src/repro_torch/csrc/hinm_spmm.cu",
              replaces="src/repro/kernels/hinm_spmm.py:99", launches=served["hinm_spmm"],
              timed="one call of one decode layer's 7 projections (q,k,v,o,gate,up,"
-                   "down), B=4, bf16, V=32",
+                   "down), B=4, bf16, V=32 (variant rows)",
+             crossover={"rows_max_b": K1_CROSSOVER, "layer_ms_by_B": crossover},
              **{**layer,
                 "max_abs_err": max([layer["max_abs_err"]] + [c["max_abs_err"] for c in k1]),
                 "max_rel_err": max([layer["max_rel_err"]] + [c["max_rel_err"] for c in k1])},

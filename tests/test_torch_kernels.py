@@ -182,6 +182,16 @@ def test_cpu_dispatch_never_launches_and_cuda_backend_raises():
     assert hs.hinm_spmm.launches == 0 and pa.paged_decode_attn.launches == 0
 
 
+def test_hinm_spmm_variant_override_is_checked_before_launch():
+    x, p, _ = _spmm_case(16, 16, 4, 8, "float32")
+    hs.hinm_spmm.launches = 0
+    with pytest.raises(ValueError, match="unknown variant"):
+        hs.hinm_spmm(x, p, variant="tiles")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hs.hinm_spmm(x, p, variant="mma")
+    assert hs.hinm_spmm.launches == 0 and hs.VARIANTS == ("rows", "mma")
+
+
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro(\.|\s+import\b))",
     re.M)
