@@ -161,9 +161,13 @@ def k1_random(label, n_out, n_in, b, dtype, v, gen):
     return k1_case(label, p, b, gen)
 
 
-def paged_case(b, s, kvh, g, hd, page, n_bt, n_pages, dtype, seed, sweep=2):
+def paged_case(b, s, kvh, g, hd, page, n_bt, n_pages, dtype, seed, sweep=2, full=False,
+               idle=None):
     """Randomly allocated paged pool with sentinel pages (unallocated table
-    tail) and swept rows (kpos reset to the sentinel, as a rollback leaves)."""
+    tail) and swept rows (kpos reset to the sentinel, as a rollback leaves).
+    `full`: every slot's table allocated and every row live.  `idle`: that
+    slot becomes an idle lane — its whole table the sentinel page (whose V
+    is random like every page's), its position 0."""
     from repro_torch.models import paging
 
     rng = np.random.default_rng(seed)
@@ -176,16 +180,19 @@ def paged_case(b, s, kvh, g, hd, page, n_bt, n_pages, dtype, seed, sweep=2):
     rng.shuffle(free)
     positions = []
     for bi in range(b):
-        n_alloc = int(rng.integers(1, n_bt + 1))
+        n_alloc = n_bt if full else int(rng.integers(1, n_bt + 1))
         pages = [free.pop() for _ in range(n_alloc)]
         bt[bi, :n_alloc] = pages
-        live = int(rng.integers(1, n_alloc * page + 1))
+        live = n_alloc * page if full else int(rng.integers(1, n_alloc * page + 1))
         for r in range(live):
             kpos[pages[r // page], r % page] = r
         for r in rng.choice(live, size=min(sweep, live), replace=False):
             if r != live - 1:
                 kpos[pages[r // page], r % page] = paging.KPOS_SENTINEL
         positions.append([live - 1 + i for i in range(s)])
+    if idle is not None:
+        bt[idle] = paging.SENTINEL_PAGE
+        positions[idle] = list(range(s))
     q = rng.normal(size=(b, s, kvh * g, hd)).astype(np.float32)
 
     def dev(a, dt=None):
@@ -196,13 +203,12 @@ def paged_case(b, s, kvh, g, hd, page, n_bt, n_pages, dtype, seed, sweep=2):
             dev(np.asarray(positions, np.int32)))
 
 
-def sdpa_view(q, kp, vp, kpos, bt, q_pos, window):
-    """Yardstick: scaled_dot_product_attention over the gathered view."""
-    import torch.nn.functional as F
-
+def sdpa_args(q, kp, vp, kpos, bt, q_pos, window):
+    """scaled_dot_product_attention's arguments over the gathered view:
+    q, K and V (GQA-expanded) as (B, H, len, hd) views, and the mask."""
     from repro_torch.models import paging
 
-    b, s, h, hd = q.shape
+    h = q.shape[2]
     kvh = kp.shape[2]
     k = paging.gather_view(kp, bt).repeat_interleave(h // kvh, dim=2)
     v = paging.gather_view(vp, bt).repeat_interleave(h // kvh, dim=2)
@@ -210,28 +216,44 @@ def sdpa_view(q, kp, vp, kpos, bt, q_pos, window):
     m = p[:, None, :] <= q_pos[:, :, None]
     if window:
         m &= p[:, None, :] > q_pos[:, :, None] - window
-    return F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=m[:, None])
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), m[:, None]
 
 
-def k2_case(s, window, dtype, seed):
+def sdpa_view(q, kp, vp, kpos, bt, q_pos, window):
+    """Yardstick: scaled_dot_product_attention over the gathered view
+    (gather, GQA expansion and mask inside the timed call)."""
+    import torch.nn.functional as F
+
+    qt, k, v, m = sdpa_args(q, kp, vp, kpos, bt, q_pos, window)
+    return F.scaled_dot_product_attention(qt, k, v, attn_mask=m)
+
+
+def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=None):
+    """Hold K2 against its plain version on a random paged pool (B slots,
+    KV 2, G 7, page 16) and time kernel, plain version, SDPA over the
+    gathered view, SDPA alone (its inputs gathered and GQA-expanded before
+    the timed window) and the bound."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels import paged_attn as pa
+    from repro_torch.models import paging
 
-    b, kvh, g, hd, page, n_bt = 4, 2, 7, 64, 16, 16
+    kvh, g, page = 2, 7, 16
     n_pages = b * n_bt + 2
-    q, kp, vp, kpos, bt, q_pos = paged_case(b, s, kvh, g, hd, page, n_bt, n_pages,
-                                            dtype, seed)
+    q, kp, vp, kpos, bt, q_pos = paged_case(b, s, kvh, g, hd, page, n_bt, n_pages, dtype,
+                                            seed, full=full, idle=idle)
     out = pa.paged_decode_attn(q, kp, vp, kpos, bt, q_pos, window=window)
     torch.cuda.synchronize()
     ref = pa.paged_decode_attn_ref(q, kp, vp, kpos, bt, q_pos, window=window)
     torch.cuda.synchronize()
-    err = float((out.float() - ref.float()).abs().max())
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
     ms = time_ms(lambda: pa.paged_decode_attn(q, kp, vp, kpos, bt, q_pos, window=window))
     plain_ms = time_ms(lambda: pa.paged_decode_attn_ref(q, kp, vp, kpos, bt, q_pos,
                                                         window=window))
     lib_ms = time_ms(lambda: sdpa_view(q, kp, vp, kpos, bt, q_pos, window))
-    from repro_torch.models import paging
-
+    args = [a.contiguous() for a in sdpa_args(q, kp, vp, kpos, bt, q_pos, window)]
+    only_ms = time_ms(lambda: F.scaled_dot_product_attention(*args[:3], attn_mask=args[3]))
     isz = q.element_size()
     # what the function needs: each distinct page's k, v, kpos read once
     # (the shared sentinel page once, however many table entries name it),
@@ -243,16 +265,83 @@ def k2_case(s, window, dtype, seed):
     ops = 4.0 * kvh * s * g * alloc_rows * hd        # q.k and p.v, f32 in-kernel
     b_ms, b_by = bound(nbytes, ops, dtype)
     tol = K2_TOL[dtype]
-    line = dict(case=f"s={s} window={window}", B=b, KV=kvh, G=g, hd=hd, page=page,
-                n_bt=n_bt, dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol,
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
-    print(f"K2 s={s} window={window:<3d} {line['dtype']:8s} err={err:.2e} (tol "
-          f"{tol:.0e}) kernel {ms*1e3:7.1f} us  plain {plain_ms*1e3:8.1f} us  sdpa "
-          f"{lib_ms*1e3:7.1f} us  bound {b_ms*1e3:6.2f} us ({b_by})", flush=True)
+    n_splits = pa.split_count(b, kvh, n_bt, s * g, page, hd, isz)
+    line = dict(case=label, B=b, s=s, window=window, KV=kvh, G=g, hd=hd, page=page,
+                n_bt=n_bt, dtype=str(dtype).split(".")[-1], n_splits=n_splits,
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                sdpa_only_ms=only_ms, bound_ms=b_ms, bound_by=b_by)
+    if idle is not None:
+        line["idle_row_err"] = float(diff[idle].max())
+    print(f"K2 {label:18s} B={b:<3d} s={s} window={window:<3d} n_bt={n_bt:<4d} hd={hd:<3d} "
+          f"{line['dtype']:8s} splits {n_splits:<3d} err={err:.2e} (tol {tol:.0e}) kernel "
+          f"{ms*1e3:7.1f} us  plain {plain_ms*1e3:8.1f} us  sdpa(view) {lib_ms*1e3:7.1f} us  "
+          f"sdpa alone {only_ms*1e3:7.1f} us  bound {b_ms*1e3:6.2f} us ({b_by})", flush=True)
     if not err <= tol:
-        raise AssertionError(f"K2 s={s} window={window} {dtype}: error {err} > {tol}")
+        raise AssertionError(f"K2 {label} s={s} window={window} n_bt={n_bt} {dtype}: "
+                             f"error {err} > {tol}")
     return line
+
+
+def k2_cases():
+    """Every K2 case: s 1/3 x window 0/64 x bf16/f32 at the served shape
+    (B 4, n_bt 16, 1-16 pages allocated per slot at random); an idle lane
+    (one slot's table all sentinel, position 0) in both dtypes; the context
+    sweep (n_bt 16/64/256, every table full); one split (the direct-output
+    path: B * KV over one wave, 4 entries); a head dim whose rows are not
+    16-byte aligned (the scalar path) in both dtypes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    out, seed = [], 0
+    for dtype in (bf16, f32):
+        for s in (1, 3):
+            for window in (0, 64):
+                out.append(k2_case(f"s={s} window={window}", 4, s, window, dtype, seed))
+                seed += 1
+    for dtype in (bf16, f32):
+        out.append(k2_case("idle lane", 4, 1, 0, dtype, seed, idle=1))
+        seed += 1
+    for n_bt in (16, 64, 256):
+        out.append(k2_case(f"context n_bt={n_bt}", 4, 1, 0, bf16, seed, n_bt=n_bt, full=True))
+        seed += 1
+    out.append(k2_case("one split", 72, 1, 0, bf16, seed, n_bt=4))
+    for dtype in (bf16, f32):
+        seed += 1
+        out.append(k2_case("unaligned hd", 4, 3, 0, dtype, seed, hd=18))
+    if {c["n_splits"] == 1 for c in out} != {True, False}:
+        raise AssertionError("K2 cases do not cover both the one-split and the combine path")
+    return out
+
+
+def k2_split_sweep():
+    """K2 (bf16) at forced split counts — the wrapper's measurement
+    override — at the decode shape (s 1 and 3) and at n_bt 256 (every table
+    full): what the split plan's TARGET_BLOCKS and MAX_SPLIT_PAGES rest on.
+    Beside it the launch floor: one and two tiny kernels timed the same way
+    (split + combine is two launches)."""
+    from repro_torch.kernels import paged_attn as pa
+
+    small = torch.zeros(64, device="cuda")
+    floor = {"one_kernel_ms": time_ms(small.zero_),
+             "two_kernels_ms": time_ms(lambda: (small.zero_(), small.add_(1)))}
+    print(f"K2 launch floor: one tiny kernel {floor['one_kernel_ms']*1e3:.1f} us, two "
+          f"{floor['two_kernels_ms']*1e3:.1f} us", flush=True)
+    sweep = {}
+    for s, n_bt, full, counts in ((1, 16, False, (1, 2, 4, 8, 16)),
+                                  (3, 16, False, (1, 2, 4, 8, 16)),
+                                  (1, 256, True, (8, 16, 32, 64))):
+        args = paged_case(4, s, 2, 7, 64, 16, n_bt, 4 * n_bt + 2, torch.bfloat16, 0,
+                          full=full)
+        ref = pa.paged_decode_attn_ref(*args).float()
+        row = {}
+        for n in counts:
+            err = float((pa.paged_decode_attn(*args, n_splits=n).float() - ref).abs().max())
+            if not err <= K2_TOL[torch.bfloat16]:
+                raise AssertionError(f"K2 at {n} splits, s={s} n_bt={n_bt}: error {err}")
+            row[n] = time_ms(lambda: pa.paged_decode_attn(*args, n_splits=n))
+        chosen = pa.split_count(4, 2, n_bt, s * 7, 16, 64, 2)
+        sweep[f"s={s} n_bt={n_bt}"] = {"chosen": chosen, "ms_by_splits": row}
+        print(f"K2 split sweep s={s} n_bt={n_bt:<3d} (plan: {chosen}): " + "  ".join(
+            f"{n}: {ms*1e3:.1f} us" for n, ms in row.items()), flush=True)
+    return {"launch_floor": floor, "split_sweep": sweep}
 
 
 # K3: every full-width projection shape of the model (HiNM orientation,
@@ -325,17 +414,12 @@ def kernels_phase():
     if (at[K1_CROSSOVER], at[K1_CROSSOVER + 1]) != ("rows", "mma"):
         raise AssertionError(f"K1 dispatch crossover is not K1_CROSSOVER = {K1_CROSSOVER}: {at}")
     layer, crossover = k1_layer(gen)
-    k2 = []
-    seed = 0
-    for dtype in (torch.bfloat16, torch.float32):
-        for s in (1, 3):
-            for window in (0, 64):
-                k2.append(k2_case(s, window, dtype, seed))
-                seed += 1
+    k2 = k2_cases()
+    k2_sweep = k2_split_sweep()
     k3 = [k3_case("random", k3_input(shape, dtype, gen), nn, mm)
           for dtype in (torch.bfloat16, torch.float32) for shape in K3_SHAPES
           for nn, mm in K3_NM]
-    return k1, layer, crossover, k2, k3
+    return k1, layer, crossover, k2, k2_sweep, k3
 
 
 def k1_layer(gen):
@@ -765,7 +849,7 @@ def main() -> int:
                 print(f"  {name}: {ln.strip()}")
 
     phase("3. kernels")
-    k1, layer, crossover, k2, k3 = kernels_phase()
+    k1, layer, crossover, k2, k2_sweep, k3 = kernels_phase()
 
     phase("4. prune")
     cfg, model = full_model()
@@ -797,10 +881,11 @@ def main() -> int:
              replaces="src/repro/kernels/paged_attn.py:116",
              launches=served["paged_decode_attn"],
              max_abs_err=max(c["max_abs_err"] for c in k2),
-             timed="one decode step of one layer: B=4, s=1, KV=2, G=7, hd=64, "
-                   "16 pages of 16, bf16",
-             **{k: k2_rep[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                       "bound_by")}, cases=k2),
+             timed="one decode step of one layer: B=4, s=1, KV=2, G=7, hd=64, page "
+                   "16, n_bt 16 with 1-16 pages allocated per slot at random, bf16",
+             **{k: k2_rep[k] for k in ("n_splits", "ms", "plain_ms", "library_ms",
+                                       "sdpa_only_ms", "bound_ms", "bound_by")},
+             **k2_sweep, cases=k2),
         dict(name="nm_select", route="cuda", source="src/repro_torch/csrc/nm_select.cu",
              replaces="src/repro/kernels/nm_select.py:38", launches=k3_launches,
              timed="ops.nm_apply over the model's 24 down projections, (24, 896, 4864) "

@@ -1,11 +1,17 @@
 """Paged-KV decode attention: the CUDA kernel's wrapper and its plain version.
 
 Port of `repro.kernels.paged_attn` (the TPU kernel `paged_decode_attn` /
-`_kernel`).  The kernel (`src/repro_torch/csrc/paged_attn.cu`, design and
-bound noted there) walks each slot's block table page by page with an
-online softmax and never builds the gathered view.  Its plain version,
-`paged_decode_attn_ref`, is exactly the reference the JAX tests hold the
-TPU kernel to: `paging.gather_view` + `layers._attn_chunked`.
+`_kernel`).  The kernel (`src/repro_torch/csrc/paged_attn.cu`) replaces the
+TPU kernel's sequential walk over a slot's block table with flash-decoding:
+the table is cut into contiguous splits, one block per (split, KV head,
+slot) with all of its pages in flight at once, and a second small kernel
+combines the splits' (m, l, acc) partials exactly.  It is bound by latency
+(a launch and two dependent DRAM round trips), not by its few hundred KB;
+the first design lost to it by walking the table page by page in 8
+blocks.  `split_count` picks the number of splits from the shapes alone,
+so a captured CUDA graph stays valid whatever the table holds.  The plain
+version, `paged_decode_attn_ref`, is exactly the reference the JAX tests
+hold the TPU kernel to: `paging.gather_view` + `layers._attn_chunked`.
 """
 from __future__ import annotations
 
@@ -18,16 +24,46 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 
+SMEM_MAX = 232_448     # shared memory one block may use on the H100 (227 KB)
+TARGET_BLOCKS = 64     # blocks a call aims at (chip_smoke's K2 split sweep)
+MAX_SPLIT_PAGES = 8    # table entries one block takes at most
+
 
 def _launcher():
     global _fn
     if _fn is None:
         fn = build.load("paged_attn").paged_attn_launch
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def split_count(b: int, kvh: int, n_bt: int, gs: int, page: int, hd: int,
+                itemsize: int) -> int:
+    """Splits of each slot's block table: enough blocks to fill the card
+    (TARGET_BLOCKS over the B * KV (slot, head) pairs), at most
+    MAX_SPLIT_PAGES pages and what fits in shared memory per split, never
+    more splits than table entries.  Shapes only, never the table's
+    contents.  Raises where one page's K and V do not fit a block."""
+    # shared memory of a split of n pages (csrc/paged_attn.cu:smem_bytes,
+    # K and V rows padded by 16 bytes, plus its 16-byte alignment pad):
+    # fixed + n * per_page
+    fixed = 4 * gs * (hd + 2) + 4 * gs + 16
+    per_page = page * (2 * (hd * itemsize + 16) + 4 * gs + 4) + 4
+    fit = (SMEM_MAX - fixed) // per_page
+    if fit < 1:
+        raise ValueError(f"paged_decode_attn: one page of {page} rows x hd {hd} "
+                         f"({itemsize}-byte) with {gs} query rows exceeds a block's "
+                         f"{SMEM_MAX} bytes of shared memory")
+    pages = min(MAX_SPLIT_PAGES, fit)
+    return min(n_bt, max(-(-n_bt // pages), -(-TARGET_BLOCKS // (b * kvh))))
+
+
+def split_ranges(n_bt: int, n_splits: int) -> list[tuple[int, int]]:
+    """Table entries [start, stop) of each split, as the kernel cuts them."""
+    return [(i * n_bt // n_splits, (i + 1) * n_bt // n_splits) for i in range(n_splits)]
 
 
 def paged_decode_attn_ref(q, k_pool, v_pool, kpos_pool, bt, q_pos, *,
@@ -51,10 +87,14 @@ def paged_decode_attn(
     q_pos: torch.Tensor,      # (B, s) int32 absolute query positions
     *,
     window: int = 0,
+    n_splits: int | None = None,
 ) -> torch.Tensor:
-    """Block-table-resolved decode attention through the CUDA kernel.
-    Returns (B, s, H, hd) in q's dtype; counts one launch in
-    ``paged_decode_attn.launches``."""
+    """Block-table-resolved decode attention through the CUDA kernel (the
+    split kernel, then the combine where there is more than one split).
+    Returns (B, s, H, hd) in q's dtype; counts one launch per call in
+    ``paged_decode_attn.launches``.  `n_splits` forces the number of
+    splits, for measurement only (the port never passes it); by default
+    `split_count` picks it."""
     b, s, h, hd = q.shape
     n_pages, page, kvh, hd2 = k_pool.shape
     n_bt = bt.shape[-1]
@@ -79,11 +119,20 @@ def paged_decode_attn(
             f"paged_decode_attn: unsupported shapes q {tuple(q.shape)}, pool "
             f"{tuple(k_pool.shape)}, kpos {tuple(kpos_pool.shape)}, bt "
             f"{tuple(bt.shape)}, q_pos {tuple(q_pos.shape)}")
+    gs = s * (h // kvh)
+    if n_splits is None:
+        n_splits = split_count(b, kvh, n_bt, gs, page, hd, q.element_size())
+    elif not 1 <= n_splits <= n_bt:
+        raise ValueError(f"paged_decode_attn: n_splits {n_splits} outside [1, n_bt {n_bt}]")
     out = torch.empty_like(q)
+    # the splits' (acc, m, l) partials; none with one split
+    ws = (torch.empty(b * kvh * n_splits * gs * (hd + 2), dtype=torch.float32,
+                      device=q.device) if n_splits > 1 else None)
     status = _launcher()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), kpos_pool.data_ptr(),
-        bt.data_ptr(), q_pos.data_ptr(), out.data_ptr(), b, s, h, kvh, hd, page,
-        n_bt, int(window), hd ** -0.5, _DTYPES[q.dtype],
+        bt.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), b, s, h, kvh, hd, page, n_bt,
+        n_splits, int(window), hd ** -0.5, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "paged_decode_attn")
     paged_decode_attn.launches += 1
