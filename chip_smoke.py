@@ -243,6 +243,7 @@ def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=N
     q, kp, vp, kpos, bt, q_pos = paged_case(b, s, kvh, g, hd, page, n_bt, n_pages, dtype,
                                             seed, full=full, idle=idle)
     out = pa.paged_decode_attn(q, kp, vp, kpos, bt, q_pos, window=window)
+    n_splits = pa.paged_decode_attn.last_splits
     torch.cuda.synchronize()
     ref = pa.paged_decode_attn_ref(q, kp, vp, kpos, bt, q_pos, window=window)
     torch.cuda.synchronize()
@@ -265,7 +266,6 @@ def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=N
     ops = 4.0 * kvh * s * g * alloc_rows * hd        # q.k and p.v, f32 in-kernel
     b_ms, b_by = bound(nbytes, ops, dtype)
     tol = K2_TOL[dtype]
-    n_splits = pa.split_count(b, kvh, n_bt, s * g, page, hd, isz)
     line = dict(case=label, B=b, s=s, window=window, KV=kvh, G=g, hd=hd, page=page,
                 n_bt=n_bt, dtype=str(dtype).split(".")[-1], n_splits=n_splits,
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -312,18 +312,11 @@ def k2_cases():
 
 
 def k2_split_sweep():
-    """K2 (bf16) at forced split counts — the wrapper's measurement
-    override — at the decode shape (s 1 and 3) and at n_bt 256 (every table
-    full): what the split plan's TARGET_BLOCKS and MAX_SPLIT_PAGES rest on.
-    Beside it the launch floor: one and two tiny kernels timed the same way
-    (split + combine is two launches)."""
+    """K2 (bf16) at forced split counts, through the wrapper's private
+    launch, at the decode shape (s 1 and 3) and at n_bt 256 (every table
+    full): what the split plan's TARGET_BLOCKS and MAX_SPLIT_PAGES rest on."""
     from repro_torch.kernels import paged_attn as pa
 
-    small = torch.zeros(64, device="cuda")
-    floor = {"one_kernel_ms": time_ms(small.zero_),
-             "two_kernels_ms": time_ms(lambda: (small.zero_(), small.add_(1)))}
-    print(f"K2 launch floor: one tiny kernel {floor['one_kernel_ms']*1e3:.1f} us, two "
-          f"{floor['two_kernels_ms']*1e3:.1f} us", flush=True)
     sweep = {}
     for s, n_bt, full, counts in ((1, 16, False, (1, 2, 4, 8, 16)),
                                   (3, 16, False, (1, 2, 4, 8, 16)),
@@ -333,15 +326,16 @@ def k2_split_sweep():
         ref = pa.paged_decode_attn_ref(*args).float()
         row = {}
         for n in counts:
-            err = float((pa.paged_decode_attn(*args, n_splits=n).float() - ref).abs().max())
+            err = float((pa._launch(*args, 0, n)[0].float() - ref).abs().max())
             if not err <= K2_TOL[torch.bfloat16]:
                 raise AssertionError(f"K2 at {n} splits, s={s} n_bt={n_bt}: error {err}")
-            row[n] = time_ms(lambda: pa.paged_decode_attn(*args, n_splits=n))
-        chosen = pa.split_count(4, 2, n_bt, s * 7, 16, 64, 2)
+            row[n] = time_ms(lambda: pa._launch(*args, 0, n))
+        pa.paged_decode_attn(*args)
+        chosen = pa.paged_decode_attn.last_splits
         sweep[f"s={s} n_bt={n_bt}"] = {"chosen": chosen, "ms_by_splits": row}
         print(f"K2 split sweep s={s} n_bt={n_bt:<3d} (plan: {chosen}): " + "  ".join(
             f"{n}: {ms*1e3:.1f} us" for n, ms in row.items()), flush=True)
-    return {"launch_floor": floor, "split_sweep": sweep}
+    return {"split_sweep": sweep}
 
 
 # K3: every full-width projection shape of the model (HiNM orientation,

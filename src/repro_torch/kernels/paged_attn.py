@@ -16,6 +16,7 @@ hold the TPU kernel to: `paging.gather_view` + `layers._attn_chunked`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,6 +41,16 @@ def _launcher():
     return _fn
 
 
+def _smem_bytes(gs: int, hd: int, page: int, pages: int, itemsize: int) -> int:
+    """Shared memory of the split kernel for splits of up to `pages` pages:
+    csrc/paged_attn.cu:smem_bytes with K and V rows padded by its largest
+    pad, 16 bytes."""
+    keys = pages * page
+    head = 4 * (gs * hd + gs * keys + 2 * gs) + 4 * (keys + gs + pages)
+    return -(-head // 16) * 16 + 2 * keys * (hd * itemsize + 16)
+
+
+@functools.lru_cache(maxsize=None)
 def split_count(b: int, kvh: int, n_bt: int, gs: int, page: int, hd: int,
                 itemsize: int) -> int:
     """Splits of each slot's block table: enough blocks to fill the card
@@ -47,17 +58,12 @@ def split_count(b: int, kvh: int, n_bt: int, gs: int, page: int, hd: int,
     MAX_SPLIT_PAGES pages and what fits in shared memory per split, never
     more splits than table entries.  Shapes only, never the table's
     contents.  Raises where one page's K and V do not fit a block."""
-    # shared memory of a split of n pages (csrc/paged_attn.cu:smem_bytes,
-    # K and V rows padded by 16 bytes, plus its 16-byte alignment pad):
-    # fixed + n * per_page
-    fixed = 4 * gs * (hd + 2) + 4 * gs + 16
-    per_page = page * (2 * (hd * itemsize + 16) + 4 * gs + 4) + 4
-    fit = (SMEM_MAX - fixed) // per_page
-    if fit < 1:
+    pages = next((n for n in range(MAX_SPLIT_PAGES, 0, -1)
+                  if _smem_bytes(gs, hd, page, n, itemsize) <= SMEM_MAX), 0)
+    if not pages:
         raise ValueError(f"paged_decode_attn: one page of {page} rows x hd {hd} "
                          f"({itemsize}-byte) with {gs} query rows exceeds a block's "
                          f"{SMEM_MAX} bytes of shared memory")
-    pages = min(MAX_SPLIT_PAGES, fit)
     return min(n_bt, max(-(-n_bt // pages), -(-TARGET_BLOCKS // (b * kvh))))
 
 
@@ -87,14 +93,22 @@ def paged_decode_attn(
     q_pos: torch.Tensor,      # (B, s) int32 absolute query positions
     *,
     window: int = 0,
-    n_splits: int | None = None,
 ) -> torch.Tensor:
     """Block-table-resolved decode attention through the CUDA kernel (the
     split kernel, then the combine where there is more than one split).
     Returns (B, s, H, hd) in q's dtype; counts one launch per call in
-    ``paged_decode_attn.launches``.  `n_splits` forces the number of
-    splits, for measurement only (the port never passes it); by default
-    `split_count` picks it."""
+    ``paged_decode_attn.launches`` and records the split count that
+    `split_count` picked in ``paged_decode_attn.last_splits``."""
+    out, paged_decode_attn.last_splits = _launch(q, k_pool, v_pool, kpos_pool, bt,
+                                                 q_pos, window)
+    paged_decode_attn.launches += 1
+    return out
+
+
+def _launch(q, k_pool, v_pool, kpos_pool, bt, q_pos, window, n_splits=None):
+    """Check the arguments, allocate the workspace and launch the kernels
+    with `n_splits` splits (`split_count`'s plan where None).  Returns the
+    output and the split count it ran."""
     b, s, h, hd = q.shape
     n_pages, page, kvh, hd2 = k_pool.shape
     n_bt = bt.shape[-1]
@@ -135,8 +149,8 @@ def paged_decode_attn(
         n_splits, int(window), hd ** -0.5, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "paged_decode_attn")
-    paged_decode_attn.launches += 1
-    return out
+    return out, n_splits
 
 
 paged_decode_attn.launches = 0
+paged_decode_attn.last_splits = None

@@ -141,11 +141,8 @@ def test_split_plan_covers_the_table(b, kvh, n_bt, gs, page, hd, isz):
     sizes = [hi - lo for lo, hi in pa.split_ranges(n_bt, n)]
     assert sum(sizes) == n_bt and min(sizes) >= 1
     assert max(sizes) <= pa.MAX_SPLIT_PAGES
-    # the largest split's shared memory (csrc/paged_attn.cu:smem_bytes, rows
-    # padded by 16 bytes) fits
-    keys = max(sizes) * page
-    head = 4 * (gs * hd + gs * keys + 2 * gs) + 4 * (keys + gs + max(sizes))
-    assert -(-head // 16) * 16 + 2 * keys * (hd * isz + 16) <= pa.SMEM_MAX
+    # the largest split's shared memory fits
+    assert pa._smem_bytes(gs, hd, page, max(sizes), isz) <= pa.SMEM_MAX
 
 
 def test_split_plan_at_the_served_shape():
