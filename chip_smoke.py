@@ -13,7 +13,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                card at the main path's full-width shapes (stated tolerances;
                nm_select bit for bit) and times kernel, plain version, one
                library call where there is one (timed here only; the port
-               never calls it) and the bound.
+               never calls it) and the bound; K2 at the verify's s = 4 and
+               K1 at its B 16 held bitwise against their single-row /
+               B 4 calls; the threefry PRNG and sampler on CUDA held equal
+               to the CPU.
   4. prune   — full-width qwen2-0.5b (24 layers, bf16, random weights from
                seed 0): `ops.nm_apply` over its 24 down projections (the
                nm_select path, launch count asserted); `prune_model`
@@ -24,8 +27,15 @@ Phases (each prints its own lines; any failure exits non-zero):
                projections (permuted vec_idx).
   5. serve   — the gyro-pruned, packed model served by `Scheduler` over the
                paged KV pool: 8 greedy requests, launch counts asserted;
-               then one decode step profiled on a live 4-slot pool (host vs
-               device time, and the kernels' share of the device step).
+               then, on a live 4-slot pool, the speculative verify held
+               against four decode steps (max |dlogit|, bit-equal) and the
+               profiles (host vs device time, the kernels' share) of a
+               greedy decode step, a sampled one and a speculative cycle,
+               greedy and sampled; then examples/serve_hinm.py's own mix
+               (every fourth request at T 0.8, top-k 16, seed = rid)
+               served plain, with SpecConfig(k=3) fused and unfused: launch
+               counts per verify asserted, acceptance and tokens per verify
+               printed, streams identical or every parting a near tie.
   6. agree   — teacher-forced prefill + 4 paged decode steps with the
                kernels, with the plain versions and with the masked-dense
                twin (torch.matmul): logits must agree.
@@ -272,10 +282,20 @@ def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=N
                 sdpa_only_ms=only_ms, bound_ms=b_ms, bound_by=b_by)
     if idle is not None:
         line["idle_row_err"] = float(diff[idle].max())
+    if s > 1:
+        rows = torch.cat([pa.paged_decode_attn(q[:, i:i + 1].contiguous(), kp, vp, kpos, bt,
+                                               q_pos[:, i:i + 1].contiguous(), window=window)
+                          for i in range(s)], dim=1)
+        line["rows_bit_equal_s1"] = bool(torch.equal(out, rows))
+        if not line["rows_bit_equal_s1"] and not window:
+            raise AssertionError(f"K2 {label} {dtype}: s={s} rows are not bitwise the s=1 "
+                                 "calls' (a verify would not be decode)")
     print(f"K2 {label:18s} B={b:<3d} s={s} window={window:<3d} n_bt={n_bt:<4d} hd={hd:<3d} "
           f"{line['dtype']:8s} splits {n_splits:<3d} err={err:.2e} (tol {tol:.0e}) kernel "
           f"{ms*1e3:7.1f} us  plain {plain_ms*1e3:8.1f} us  sdpa(view) {lib_ms*1e3:7.1f} us  "
-          f"sdpa alone {only_ms*1e3:7.1f} us  bound {b_ms*1e3:6.2f} us ({b_by})", flush=True)
+          f"sdpa alone {only_ms*1e3:7.1f} us  bound {b_ms*1e3:6.2f} us ({b_by})"
+          + (f"  rows bitwise the single-row calls' {line['rows_bit_equal_s1']}"
+             if "rows_bit_equal_s1" in line else ""), flush=True)
     if not err <= tol:
         raise AssertionError(f"K2 {label} s={s} window={window} n_bt={n_bt} {dtype}: "
                              f"error {err} > {tol}")
@@ -284,11 +304,14 @@ def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=N
 
 def k2_cases():
     """Every K2 case: s 1/3 x window 0/64 x bf16/f32 at the served shape
-    (B 4, n_bt 16, 1-16 pages allocated per slot at random); an idle lane
-    (one slot's table all sentinel, position 0) in both dtypes; the context
-    sweep (n_bt 16/64/256, every table full); one split (the direct-output
-    path: B * KV over one wave, 4 entries); a head dim whose rows are not
-    16-byte aligned (the scalar path) in both dtypes."""
+    (B 4, n_bt 16, 1-16 pages allocated per slot at random); the
+    speculative verify's s = k+1 = 4 (window 0, both dtypes); an idle lane
+    (one slot's table all sentinel, position 0) at s 1 and 4 in both
+    dtypes; the context sweep (n_bt 16/64/256, every table full); one split
+    (the direct-output path: B * KV over one wave, 4 entries); a head dim
+    whose rows are not 16-byte aligned (the scalar path) in both dtypes.
+    Every case of s > 1 also holds the kernel's rows bitwise against s
+    single-row calls (what makes a verify's row i decode step i's)."""
     bf16, f32 = torch.bfloat16, torch.float32
     out, seed = [], 0
     for dtype in (bf16, f32):
@@ -296,9 +319,12 @@ def k2_cases():
             for window in (0, 64):
                 out.append(k2_case(f"s={s} window={window}", 4, s, window, dtype, seed))
                 seed += 1
-    for dtype in (bf16, f32):
-        out.append(k2_case("idle lane", 4, 1, 0, dtype, seed, idle=1))
+        out.append(k2_case("verify s=4", 4, 4, 0, dtype, seed))
         seed += 1
+    for dtype in (bf16, f32):
+        for s in (1, 4):
+            out.append(k2_case(f"idle lane s={s}", 4, s, 0, dtype, seed, idle=1))
+            seed += 1
     for n_bt in (16, 64, 256):
         out.append(k2_case(f"context n_bt={n_bt}", 4, 1, 0, bf16, seed, n_bt=n_bt, full=True))
         seed += 1
@@ -407,7 +433,8 @@ def kernels_phase():
     at = {c["B"]: c["variant"] for c in k1 if c["case"] == "down" and c["dtype"] == "bfloat16"}
     if (at[K1_CROSSOVER], at[K1_CROSSOVER + 1]) != ("rows", "mma"):
         raise AssertionError(f"K1 dispatch crossover is not K1_CROSSOVER = {K1_CROSSOVER}: {at}")
-    layer, crossover = k1_layer(gen)
+    layer, crossover, ps, dense = k1_layer(gen)
+    layer["verify"] = k1_verify_layer(gen, ps, dense)
     k2 = k2_cases()
     k2_sweep = k2_split_sweep()
     k3 = [k3_case("random", k3_input(shape, dtype, gen), nn, mm)
@@ -474,7 +501,100 @@ def k1_layer(gen):
               f"{row['rows']*1e3:7.1f} us  mma {row['mma']*1e3:7.1f} us  (dispatch: "
               f"{hs.variant(bx, ps[0], dt)})", flush=True)
     return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by), crossover
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by), crossover, ps, dense
+
+
+def k1_verify_layer(gen, ps, dense, b=16):
+    """The speculative verify's decode layer: the same seven projections at
+    B = slots x (k+1) = 16 rows, bf16, V 32.  The verify runs them on the
+    variant decode runs for 4 slots ("rows": its sums do not depend on the
+    batch, so row i is bitwise what decode computes; asserted here against
+    four B = 4 calls); the dispatch's own choice at B 16 ("mma") is held and
+    timed beside it.  Each: checked against the plain version, timed as one
+    call of seven launches, with `torch.matmul` and the bound."""
+    from repro_torch.kernels import hinm_spmm as hs
+
+    dt = torch.bfloat16
+    xs_by_n = {n: torch.randn((b, n), generator=gen, device="cuda").to(dt)
+               for n in (896, 4864)}
+    xs = [xs_by_n[p.n_in] for p in ps]
+    refs = [hs.hinm_spmm_ref(x, p) for x, p in zip(xs, ps)]
+    lib_ms = time_ms(lambda: [torch.matmul(x, w.T) for x, w in zip(xs, dense)])
+    isz = 2
+    nbytes = (sum(x.numel() * isz for x in xs_by_n.values())
+              + sum(p.packed_bytes() + b * p.n_out * isz for p in ps))
+    b_ms, b_by = bound(nbytes, sum(2.0 * p.vals.numel() * b for p in ps), dt)
+    out = {}
+    for var in ("rows", hs.variant(b, ps[0], dt)):
+        ys = [hs.hinm_spmm(x, p, variant=var) for x, p in zip(xs, ps)]
+        torch.cuda.synchronize()
+        rel = max(float((y.float() - r.float()).abs().max()) / float(r.float().abs().max())
+                  for y, r in zip(ys, refs))
+        ms = time_ms(lambda: [hs.hinm_spmm(x, p, variant=var) for x, p in zip(xs, ps)])
+        line = dict(B=b, variant=var, max_rel_err=rel,
+                    max_abs_err=max(float((y.float() - r.float()).abs().max())
+                                    for y, r in zip(ys, refs)),
+                    ms=ms, plain_ms=None, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        if var == "rows":
+            line["plain_ms"] = time_ms(lambda: [hs.hinm_spmm_ref(x, p) for x, p in zip(xs, ps)])
+            quarters = [torch.cat([hs.hinm_spmm(x[i:i + 4].contiguous(), p)
+                                   for i in range(0, b, 4)]) for x, p in zip(xs, ps)]
+            line["rows_bit_equal_b4"] = all(torch.equal(y, q) for y, q in zip(ys, quarters))
+            if not line["rows_bit_equal_b4"]:
+                raise AssertionError("K1 rows at B 16 is not bitwise four B 4 calls")
+        print(f"K1 verify layer (7 projections, B={b}, bf16, V=32, {var}): rel_err={rel:.2e} "
+              f"(tol {K1_TOL[dt]:.0e}) kernel {ms*1e3:7.1f} us  matmul {lib_ms*1e3:7.1f} us  "
+              f"bound {b_ms*1e3:6.2f} us ({b_by})"
+              + (f"  plain {line['plain_ms']*1e3:7.1f} us  rows bitwise B4 "
+                 f"{line['rows_bit_equal_b4']}" if var == "rows" else ""), flush=True)
+        if not rel <= K1_TOL[dt]:
+            raise AssertionError(f"K1 verify layer {var}: relative error {rel}")
+        out[var] = line
+    return out
+
+
+# the Random123 known-answer vector of threefry2x32 (key, counter, output)
+THREEFRY_KAT = ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0))
+
+
+def sampler_check(vocab):
+    """The port's threefry PRNG and sampler on CUDA tensors against the same
+    functions on CPU tensors (which the CPU tests hold integer-equal to
+    jax.random): the known-answer vector, then per-slot keys and the full
+    vocabulary's random bits integer-equal, then draws on full-vocab logits
+    under the main flow's parameters equal."""
+    from repro_torch.serve import prng, sampler
+
+    (k1, k2), (c1, c2), want = THREEFRY_KAT
+    got = prng.threefry2x32(*(torch.tensor(v, dtype=torch.int64, device="cuda")
+                              for v in (k1, k2, c1, c2)))
+    if tuple(int(v) for v in got) != want:
+        raise AssertionError(f"threefry2x32 on CUDA: {[hex(int(v)) for v in got]} != "
+                             f"{[hex(v) for v in want]}")
+    seeds = torch.tensor([0, 3, 7, 2**31 + 11, 2**32 - 1, 123456789], dtype=torch.int64)
+    gens = torch.tensor([0, 1, 5, 17, 2**31, 4095], dtype=torch.int64)
+    keys = {d: sampler.fold_keys(prng.PRNGKey(0, d), seeds.to(d), gens.to(d))
+            for d in ("cpu", "cuda")}
+    keys_eq = bool(torch.equal(keys["cuda"].cpu(), keys["cpu"]))
+    bits_eq = bool(torch.equal(prng.random_bits(keys["cuda"], vocab).cpu(),
+                               prng.random_bits(keys["cpu"], vocab)))
+    logits = torch.randn((6, vocab), generator=torch.Generator().manual_seed(5)) * 4
+    temp = torch.tensor([0.8, 0.8, 0.0, 0.8, 1.2, 0.5])
+    topk = torch.tensor([16, 16, 0, 0, 50, 16], dtype=torch.int32)
+    topp = torch.tensor([0.0, 0.9, 0.0, 0.95, 0.0, 0.5])
+    draws = {d: sampler.sample(keys[d], logits.to(d), temp.to(d), topk.to(d), topp.to(d)).cpu()
+             for d in ("cpu", "cuda")}
+    draws_eq = bool(torch.equal(draws["cuda"], draws["cpu"]))
+    gum = float((prng.gumbel(keys["cuda"], vocab).cpu() - prng.gumbel(keys["cpu"], vocab))
+                .abs().max())
+    print(f"threefry2x32 known-answer vector on CUDA: ok; keys integer-equal CUDA vs CPU: "
+          f"{keys_eq}; {vocab} random words per key integer-equal: {bits_eq}; draws "
+          f"(T 0.8 top-k 16 and others) equal: {draws_eq} {draws['cuda'].tolist()}; Gumbel "
+          f"noise max |CUDA - CPU| {gum:.2e} (log's last bit)", flush=True)
+    if not (keys_eq and bits_eq and draws_eq):
+        raise AssertionError("the PRNG or the sampler on CUDA differs from the CPU")
+    return dict(keys_equal=keys_eq, bits_equal=bits_eq, draws_equal=draws_eq,
+                gumbel_max_abs_diff=gum)
 
 
 # --------------------------------------------------------------------------
@@ -608,27 +728,19 @@ def graph_of(fn) -> torch.cuda.CUDAGraph:
     return graph
 
 
-@torch.no_grad()
-def step_profile(cfg, model, kv):
-    """Where a decode step's time goes, on a live pool: the PROFILE_LENS
-    prompts prefilled into the served `SlotKVCache`, then greedy decode
-    steps (`decode_step`, argmax fed back) that advance the pool in place
-    as served steps do (each slot reserves rows for every step run here):
-    wall_ms / host_ms — one step on the host clock, over two chunks of 8
-                steps with one sync each, as the scheduler runs them:
-                wall includes the sync, host only the enqueueing;
-    device_ms — device time of one step, captured once as a CUDA graph and
-                replayed (no host gaps between its kernels);
-    k1_ms / k2_ms — device time of that step's 7 x L hinm_spmm and L
-                paged_decode_attn launches alone, captured as graphs on the
-                same weights and pool;
-    k*_host_us — host cost of one kernel-wrapper call at decode shapes."""
-    from repro_torch.kernels import hinm_spmm as hs
-    from repro_torch.kernels import paged_attn as pa
+# draft tokens per verify in the spec runs and profiles: the main flow's
+# --spec-k 3 (examples/serve_hinm.py)
+SPEC_K = 3
+
+
+def live_pool(cfg, model, kv, reserve):
+    """The PROFILE_LENS prompts prefilled into the served `SlotKVCache`
+    (each slot reserving `reserve` rows past its prompt); returns the slots
+    and each one's greedy first token (B, 1)."""
     from repro_torch.models import zoo
     from repro_torch.serve import sampler
 
-    b, chunk = len(PROFILE_LENS), 8
+    b = len(PROFILE_LENS)
     rng = np.random.default_rng(3)
     tokens = np.zeros((b, max(PROFILE_LENS)), np.int32)
     for i, n in enumerate(PROFILE_LENS):
@@ -639,60 +751,206 @@ def step_profile(cfg, model, kv):
     tok = sampler.greedy(zoo.logits_fn(model, cfg, last)[:, : cfg.vocab].float())[:, None]
     slots = [kv.acquire() for _ in range(b)]
     for row, (slot, n) in enumerate(zip(slots, PROFILE_LENS)):
-        kv.insert(slot, stripe, n, row=row, reserve=n + 48)
-    cache = kv.cache
+        kv.insert(slot, stripe, n, row=row, reserve=n + reserve)
+    return slots, tok
 
-    def step():
-        logits = zoo.decode_step(model, cfg, tok, cache)
-        tok.copy_(sampler.greedy(logits[:, : cfg.vocab].float())[:, None])
 
+def rewind(cfg, cache, pos0):
+    """Sweep every row written since `pos0` and rewind the pool there, so
+    each profile runs at the same context length."""
+    from repro_torch.models import zoo
+
+    n = int((cache["pos"][0] - pos0).max())
+    if n > 0:
+        zoo.cache_rollback(cfg, cache, None, pos0, torch.zeros_like(pos0), n)
+
+
+@torch.no_grad()
+def spec_bits(cfg, model, cache, tok):
+    """The speculative verify against sequential decode on the live pool:
+    four greedy `decode_step`s from the pending token (each feeding back
+    its argmax), rewound, then one `verify_step` over [pending + the three
+    tokens decode chose].  Row i of the verify must be decode step i: the
+    max |dlogit| over the 4 x 4 x vocab logits, whether they are bit-equal,
+    and the smallest top-2 margin of the decode logits (bf16 logits tie
+    often)."""
+    from repro_torch.models import zoo
+    from repro_torch.serve import sampler
+
+    pos0 = zoo.cache_position(cfg, cache)
+    seq, dec = [tok], []
+    for _ in range(SPEC_K + 1):
+        logits = zoo.decode_step(model, cfg, seq[-1], cache)
+        dec.append(logits)
+        seq.append(sampler.greedy(logits[:, : cfg.vocab].float())[:, None])
+    dec = torch.stack(dec, dim=1)[..., : cfg.vocab]
+    rewind(cfg, cache, pos0)
+    ver = zoo.verify_step(model, cfg, torch.cat(seq[: SPEC_K + 1], dim=1), cache)[0]
+    ver = ver[..., : cfg.vocab]
+    rewind(cfg, cache, pos0)
+    top2 = torch.topk(dec.float(), 2, dim=-1).values
+    out = dict(max_abs_dlogit=float((ver.float() - dec.float()).abs().max()),
+               bit_equal=bool(torch.equal(ver, dec)),
+               min_top2_margin=float((top2[..., 0] - top2[..., 1]).min()),
+               positions=int(dec.shape[0] * dec.shape[1]))
+    print(f"spec bits: verify_step over [pending + {SPEC_K} drafts] vs {SPEC_K + 1} decode "
+          f"steps on the live pool: bit-equal {out['bit_equal']}, max |dlogit| "
+          f"{out['max_abs_dlogit']:.3e} over {out['positions']} positions x {cfg.vocab} "
+          f"(smallest decode top-2 margin {out['min_top2_margin']:.3e})", flush=True)
+    return out
+
+
+def host_and_device(fn, chunk=8):
+    """One call of `fn` on the host clock over two chunks of `chunk` calls
+    with one sync each, as the scheduler runs them (wall includes the sync,
+    host only the enqueueing), and its device time replayed as a CUDA
+    graph.  Returns (wall_ms, host_ms, device_ms)."""
     walls, hosts = [], []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(chunk):
-            step()
+            fn()
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         hosts.append((t1 - t0) / chunk * 1e3)
         walls.append((time.perf_counter() - t0) / chunk * 1e3)
-    device_ms = time_ms(graph_of(step).replay)
+    return float(np.mean(walls)), float(np.mean(hosts)), time_ms(graph_of(fn).replay)
+
+
+@torch.no_grad()
+def step_profile(cfg, model, kv):
+    """Where a decode step's time goes, on a live pool (`live_pool`), each
+    part rewound to the same context length before the next:
+    greedy / sampled — one `decode_step` with argmax, or with every lane
+                sampled at T 0.8, top-k 16 (the main flow's sampled
+                requests: `sampler.sample` on per-slot keys);
+    verify / verify_sampled — one speculative cycle as the fused loop runs
+                it: n-gram proposal, `verify_step` over k+1 = 4 rows per
+                slot, acceptance, history append and rollback (greedy, or
+                every lane "match"-sampled as above);
+    each with wall_ms / host_ms (`host_and_device`) and device_ms (one
+    call captured as a CUDA graph and replayed); k1_ms / k2_ms — device
+    time of the step's 7 x L hinm_spmm and L paged_decode_attn launches
+    alone (B 4, s 1), captured on the same weights and pool, and
+    verify_k1_ms / verify_k2_ms the same for the verify (B 16 on the
+    verify's variant, s 4); k*_host_us — host cost of one kernel-wrapper
+    call at decode shapes."""
+    from repro_torch.kernels import hinm_spmm as hs
+    from repro_torch.kernels import paged_attn as pa
+    from repro_torch.models import zoo
+    from repro_torch.serve import prng, sampler
+    from repro_torch.serve import spec as spec_mod
+
+    b, v = len(PROFILE_LENS), cfg.vocab
+    slots, tok0 = live_pool(cfg, model, kv, reserve=48)
+    cache = kv.cache
+    pos0 = zoo.cache_position(cfg, cache)
+    bits = spec_bits(cfg, model, cache, tok0)
+
+    def dev(vals, dtype):
+        return torch.tensor(vals, dtype=dtype, device="cuda")
+
+    key = prng.PRNGKey(0, "cuda")
+    seeds = dev(list(range(b)), torch.int64)
+    temp, topk = dev([0.8] * b, torch.float32), dev([16] * b, torch.int32)
+    topp = dev([0.0] * b, torch.float32)
+    tok, gens = tok0.clone(), dev([1] * b, torch.int32)
+
+    def greedy_step():
+        logits = zoo.decode_step(model, cfg, tok, cache)
+        tok.copy_(sampler.greedy(logits[:, :v].float())[:, None])
+
+    def sampled_step():
+        logits = zoo.decode_step(model, cfg, tok, cache)
+        keys = sampler.fold_keys(key, seeds, gens)
+        tok.copy_(sampler.sample(keys, logits[:, :v].float(), temp, topk, topp)[:, None])
+        gens.add_(1)
+
+    # the n-gram corpus: each slot's prompt tail and its pending token
+    hist = torch.zeros((b, kv.max_seq), dtype=torch.int32, device="cuda")
+    hlen = dev([8] * b, torch.int32)
+    rem, keff = dev([1 << 20] * b, torch.int32), dev([SPEC_K] * b, torch.int32)
+    active, match = dev([True] * b, torch.bool), dev([True] * b, torch.bool)
+    eos = dev([-1] * b, torch.int32)
+
+    def cycle(sampled):
+        drafts = spec_mod.ngram_propose(hist, hlen, tok, SPEC_K)
+        p0 = zoo.cache_position(cfg, cache)
+        logits, undo = zoo.verify_step(model, cfg, torch.cat([tok, drafts], dim=1), cache)
+        emits, cnt, _, tok2, _, _, gens2 = spec_mod.acceptance(
+            logits[..., :v].float(), drafts, tok, base_key=key, seeds=seeds, gens=gens,
+            temp=temp if sampled else torch.zeros_like(temp), topk=topk, topp=topp, eos=eos,
+            rem=rem, active=active, k_eff=keff, match=match, stochastic=sampled,
+            any_reject=False)
+        h2, l2 = spec_mod.append_history(hist, hlen, emits, cnt)
+        zoo.cache_rollback(cfg, cache, undo, p0, cnt, SPEC_K + 1)
+        tok.copy_(tok2)
+        gens.copy_(gens2)
+        hist.copy_(h2)
+        hlen.copy_(torch.clamp(l2, max=kv.max_seq - SPEC_K - 1))
+
+    out = {"spec_bits": bits}
+    for name, fn in (("greedy", greedy_step), ("sampled", sampled_step),
+                     ("verify", lambda: cycle(False)), ("verify_sampled", lambda: cycle(True))):
+        tok.copy_(tok0)
+        gens.fill_(1)
+        hist.zero_()
+        hist[:, :8] = tok0
+        # a cycle writes up to k+1 rows: fewer of them keep a part's rows
+        # inside the 48 each slot reserves
+        wall, host, device = host_and_device(fn, chunk=4 if name.startswith("verify") else 8)
+        out[name] = {"wall_ms": wall, "host_ms": host, "device_ms": device}
+        rewind(cfg, cache, pos0)
 
     blk0 = model.blocks[0]
-    x_d = torch.zeros((b, blk0.attn.wq.w.n_in), dtype=cfg.dtype, device="cuda")
-    x_f = torch.zeros((b, blk0.mlp.wd.w.n_in), dtype=cfg.dtype, device="cuda")
-    q = torch.zeros((b, 1, cfg.n_heads, cfg.head_dim), dtype=cfg.dtype, device="cuda")
-    qpos = cache["pos"][0][:, None].clone()
 
-    def k1_step():
-        for blk in model.blocks:
-            a, m = blk.attn, blk.mlp
-            for lin in (a.wq, a.wk, a.wv, a.wo, m.wg, m.wu):
-                hs.hinm_spmm(x_d, lin.w)
-            hs.hinm_spmm(x_f, m.wd.w)
+    def k1_launches(rows, variant=None):
+        x_d = torch.zeros((rows, blk0.attn.wq.w.n_in), dtype=cfg.dtype, device="cuda")
+        x_f = torch.zeros((rows, blk0.mlp.wd.w.n_in), dtype=cfg.dtype, device="cuda")
 
-    def k2_step():
-        for i in range(cfg.n_layers):
-            pa.paged_decode_attn(q, cache["k"][i], cache["v"][i], cache["kpos"][i],
-                                 cache["bt"][i], qpos)
+        def run():
+            for blk in model.blocks:
+                a, m = blk.attn, blk.mlp
+                for lin in (a.wq, a.wk, a.wv, a.wo, m.wg, m.wu):
+                    hs.hinm_spmm(x_d, lin.w, variant)
+                hs.hinm_spmm(x_f, m.wd.w, variant)
+        return run
 
-    k1_ms = time_ms(graph_of(k1_step).replay)
-    k2_ms = time_ms(graph_of(k2_step).replay)
+    def k2_launches(s):
+        q = torch.zeros((b, s, cfg.n_heads, cfg.head_dim), dtype=cfg.dtype, device="cuda")
+        qpos = (cache["pos"][0][:, None]
+                + torch.arange(s, dtype=torch.int32, device="cuda")[None, :]).contiguous()
+
+        def run():
+            for i in range(cfg.n_layers):
+                pa.paged_decode_attn(q, cache["k"][i], cache["v"][i], cache["kpos"][i],
+                                     cache["bt"][i], qpos)
+        return run, q, qpos
+
+    verify_variant = hs.variant(b, blk0.mlp.wd.w, cfg.dtype)
+    out["k1_ms"] = time_ms(graph_of(k1_launches(b)).replay)
+    out["verify_k1_ms"] = time_ms(graph_of(k1_launches(b * (SPEC_K + 1), verify_variant)).replay)
+    k2_run, q, qpos = k2_launches(1)
+    out["k2_ms"] = time_ms(graph_of(k2_run).replay)
+    out["verify_k2_ms"] = time_ms(graph_of(k2_launches(SPEC_K + 1)[0]).replay)
+    out["verify_k1_variant"] = verify_variant
 
     def host_us(fn, n=200):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
-        out = (time.perf_counter() - t0) / n * 1e6
+        res = (time.perf_counter() - t0) / n * 1e6
         torch.cuda.synchronize()
-        return out
+        return res
 
-    out = {"wall_ms": float(np.mean(walls)), "host_ms": float(np.mean(hosts)),
-           "device_ms": device_ms, "k1_ms": k1_ms, "k2_ms": k2_ms,
-           "k1_host_us": host_us(lambda: hs.hinm_spmm(x_d, blk0.mlp.wg.w)),
-           "k2_host_us": host_us(lambda: pa.paged_decode_attn(
-               q, cache["k"][0], cache["v"][0], cache["kpos"][0], cache["bt"][0], qpos))}
+    x_d = torch.zeros((b, blk0.attn.wq.w.n_in), dtype=cfg.dtype, device="cuda")
+    out["k1_host_us"] = host_us(lambda: hs.hinm_spmm(x_d, blk0.mlp.wg.w))
+    out["k2_host_us"] = host_us(lambda: pa.paged_decode_attn(
+        q, cache["k"][0], cache["v"][0], cache["kpos"][0], cache["bt"][0], qpos))
+    # the greedy step's fields where earlier runs kept them
+    out.update({k: out["greedy"][k] for k in ("wall_ms", "host_ms", "device_ms")})
     for slot in slots:
         kv.release(slot)
     return out
@@ -762,9 +1020,234 @@ def serve_phase(cfg, model):
           f"{dev - prof['k1_ms'] - prof['k2_ms']:.3f} ms; wrapper host cost per "
           f"launch: hinm_spmm {prof['k1_host_us']:.1f} us, paged_decode_attn "
           f"{prof['k2_host_us']:.1f} us")
+    for name, what in (("sampled", "decode step, every lane sampled (T 0.8, top-k 16)"),
+                       ("verify", f"spec cycle (propose, verify k+1={SPEC_K + 1}, accept, "
+                                  "rollback), greedy"),
+                       ("verify_sampled", "spec cycle, every lane match-sampled")):
+        q = prof[name]
+        print(f"step profile, {what}: wall {q['wall_ms']:.2f} ms (host enqueue "
+              f"{q['host_ms']:.2f} ms); device {q['device_ms']:.3f} ms (greedy decode step "
+              f"{dev:.3f} ms) -> device idle {1 - q['device_ms'] / q['wall_ms']:.1%}")
+    vd = prof["verify"]["device_ms"]
+    print(f"verify forward's kernels: hinm_spmm x{per_step_k1} at B {4 * (SPEC_K + 1)} "
+          f"({prof['verify_k1_variant']}) {prof['verify_k1_ms']:.3f} ms ({prof['verify_k1_ms'] / vd:.1%} "
+          f"of the greedy cycle's device time), paged_decode_attn x{cfg.n_layers} at s "
+          f"{SPEC_K + 1} {prof['verify_k2_ms']:.3f} ms ({prof['verify_k2_ms'] / vd:.1%})")
+    mixed = mixed_phase(cfg, model, sched, prof["spec_bits"])
     return {"hinm_spmm": k1_n, "paged_decode_attn": k2_n,
             "decode_tok_s": st.decode_tokens_per_second, "served_p50_step_ms": served_ms,
-            "profile": prof, "wall_s": wall}
+            "profile": prof, "wall_s": wall, "mixed": mixed}
+
+
+# examples/serve_hinm.py's workload (build_workload at its defaults: 10
+# requests, 32-token prompts, one arriving per scheduler step)
+MIXED_REQUESTS, MIXED_PROMPT = 10, 32
+
+
+def mixed_requests(prompts):
+    """The main flow's mix: every fourth request sampled at temperature 0.8
+    and top-k 16, the rest greedy; 24 new tokens for every third request,
+    8 for the others; seed = rid."""
+    from repro_torch.serve import Request, SamplingParams
+
+    return [Request(rid=i, prompt=p, arrival=i, params=SamplingParams(
+        max_new_tokens=24 if i % 3 == 0 else 8, temperature=0.8 if i % 4 == 3 else 0.0,
+        top_k=16 if i % 4 == 3 else 0, seed=i)) for i, p in enumerate(prompts)]
+
+
+def admission_groups(reqs) -> dict:
+    """rid -> the rids prefilled with it, in queue order (a group's members
+    share one admit_time)."""
+    by_time: dict = {}
+    for r in sorted(reqs, key=lambda r: (r.arrival, r.rid)):
+        by_time.setdefault(r.admit_time, []).append(r.rid)
+    return {rid: tuple(g) for g in by_time.values() for rid in g}
+
+
+def serve_run(label, sched, prompts):
+    """Serve the mix once, launch counts set to 0 just before and read just
+    after; checks every request ran to its budget."""
+    from repro_torch.kernels import hinm_spmm as hs
+    from repro_torch.kernels import paged_attn as pa
+
+    reqs = mixed_requests(prompts)
+    torch.cuda.synchronize()
+    hs.hinm_spmm.launches = 0
+    pa.paged_decode_attn.launches = 0
+    t0 = time.perf_counter()
+    sched.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_n, k2_n = hs.hinm_spmm.launches, pa.paged_decode_attn.launches
+    st = sched.stats
+    for r in reqs:
+        if not (r.n_generated == r.params.max_new_tokens
+                or (r.finish_reason == "eos" and r.tokens[-1] == EOS)):
+            raise AssertionError(f"{label} request {r.rid}: {r.n_generated} tokens, "
+                                 f"finish {r.finish_reason}")
+    line = dict(wall_s=wall, decode_tok_s=st.decode_tokens_per_second,
+                p50_step_ms=st.step_time_percentile(50) * 1e3,
+                p50_ttft_ms=st.ttft_percentile(50) * 1e3, decode_steps=st.decode_steps,
+                decode_tokens=st.decode_tokens, verify_steps=st.verify_steps,
+                acceptance_rate=st.acceptance_rate,
+                tokens_per_verify_step=st.tokens_per_verify_step,
+                hinm_spmm=k1_n, paged_decode_attn=k2_n,
+                rollback_sweeps=sched.kv.rollback_sweeps)
+    print(f"{label:14s}: {len(reqs)} requests in {wall:.2f} s, {st.decode_tokens} decode "
+          f"tokens, {st.decode_steps} decode steps ({st.verify_steps} verify forwards), "
+          f"{line['decode_tok_s']:.1f} decode tok/s, p50 step {line['p50_step_ms']:.2f} ms, "
+          f"p50 TTFT {line['p50_ttft_ms']:.1f} ms; "
+          + (f"acceptance {st.acceptance_rate:.3f} ({st.draft_accepted}/{st.draft_proposed}), "
+             f"{st.tokens_per_verify_step:.3f} tokens per verify; " if st.verify_steps else "")
+          + f"launches hinm_spmm {k1_n}, paged_decode_attn {k2_n}", flush=True)
+    return reqs, line
+
+
+@torch.no_grad()
+def prefill_width_noise(cfg, model, sched, prompts, steps=24):
+    """How far a request's logits move when admission prefills it in a
+    group of another width (the speculative and plain runs free their slots
+    at different steps, so their admission groups can differ): the first
+    prompt prefilled alone, as row 0 of a group of 2 and of 4 (K1's "mma"
+    variant at 32, 64 and 128 rows), then `steps` paged decode steps fed the
+    width-1 run's greedy tokens.  Returns the max |dlogit| against width 1."""
+    from repro_torch.models import zoo
+    from repro_torch.serve import sampler
+    from repro_torch.serve.kv import SlotKVCache
+
+    runs, forced = [], None
+    for width in (1, 2, 4):
+        kv = SlotKVCache(cfg, 4, sched.max_seq, page=16, n_pages=None, device="cuda")
+        st = kv.template(width)
+        n = len(prompts[0])
+        toks = torch.from_numpy(np.stack(prompts[:width])).cuda()
+        last = zoo.prefill(model, cfg, toks, st, n_rows=torch.full(
+            (width,), n, dtype=torch.int32, device="cuda"))
+        logits = [zoo.logits_fn(model, cfg, last)[:1, : cfg.vocab]]
+        kv.insert(kv.acquire(), st, n, row=0, reserve=n + steps + 1)
+        if forced is None:
+            forced = [sampler.greedy(logits[0].float())]
+        tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+        for i in range(steps):
+            tok[0, 0] = forced[i][0]
+            logits.append(zoo.decode_step(model, cfg, tok, kv.cache)[:1, : cfg.vocab])
+            if len(forced) <= i + 1:
+                forced.append(sampler.greedy(logits[-1].float()))
+        runs.append(torch.cat(logits).float())
+    return max(float((r - runs[0]).abs().max()) for r in runs[1:])
+
+
+@torch.no_grad()
+def parting_margin(cfg, model, sched, prompts, req, group, j):
+    """The top-2 margin, in logits, of the plain run's draw of token j of
+    `req`: its admission group re-prefilled exactly as `Scheduler` did
+    (same members, bucket and padded width, so bitwise the same rows), its
+    row inserted into a 4-slot pool of the served geometry, then decode
+    steps fed its own tokens up to j.  A sampled request's margin is taken
+    on its Gumbel-perturbed, top-k-masked scores (its key at index j),
+    scaled back by T.  Returns (margin, the token the replay draws)."""
+    from repro_torch.models import zoo
+    from repro_torch.serve import prng, sampler
+    from repro_torch.serve.kv import SlotKVCache
+
+    rows = [prompts[r] for r in group]
+    k_b = 1
+    while k_b < len(rows):
+        k_b *= 2
+    s_b = sched._bucket_len(len(rows[0]))
+    toks = np.zeros((k_b, s_b), np.int32)
+    n_rows = np.zeros((k_b,), np.int32)
+    for i in range(k_b):
+        p = rows[min(i, len(rows) - 1)]
+        toks[i, : len(p)] = p
+        n_rows[i] = len(p)
+    kv = SlotKVCache(cfg, 4, sched.max_seq, page=16, n_pages=None, device="cuda")
+    st = kv.template(k_b)
+    last = zoo.prefill(model, cfg, torch.from_numpy(toks).cuda(), st,
+                       n_rows=torch.from_numpy(n_rows).cuda())
+    row = group.index(req.rid)
+    logits = zoo.logits_fn(model, cfg, last)[row: row + 1, : cfg.vocab].float()
+    kv.insert(kv.acquire(), st, len(req.prompt), row=row, reserve=len(req.prompt) + j + 1)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    for t in range(j):
+        tok[0, 0] = req.tokens[t]
+        logits = zoo.decode_step(model, cfg, tok, kv.cache)[:1, : cfg.vocab].float()
+    p = req.params
+    scores = logits
+    if p.temperature > 0:
+        key = sampler.fold_keys(prng.PRNGKey(0, "cuda"),
+                                torch.tensor([p.seed], device="cuda"),
+                                torch.tensor([j], device="cuda"))
+        masked = sampler.mask_logits(logits / p.temperature,
+                                     torch.tensor([p.top_k], device="cuda"),
+                                     torch.tensor([p.top_p], device="cuda"))
+        scores = (masked + prng.gumbel(key, cfg.vocab)) * p.temperature
+    top2 = torch.topk(scores[0], 2)
+    return float(top2.values[0] - top2.values[1]), int(top2.indices[0])
+
+
+def mixed_phase(cfg, model, sched, bits):
+    """The main flow's own workload, served three times on the gyro-pruned
+    packed model: without speculation (`sched`, reset), then with
+    SpecConfig(k=3) fused and unfused.  Launches of both kernels are
+    asserted per verify forward.  The three runs' streams must be
+    identical.  Where one parts, the request's admission group must differ
+    between the runs (else a fault), and the parting draw must be a near
+    tie: its top-2 margin in the plain run (`parting_margin`, exact) within
+    the measured max |dlogit| of the paths that differ (the verify against
+    decode, `spec_bits`; prefill widths, `prefill_width_noise`)."""
+    from repro_torch.serve import Scheduler, SpecConfig
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, MIXED_PROMPT).astype(np.int32)
+               for _ in range(MIXED_REQUESTS)]
+    geom = dict(max_slots=4, max_seq=256, page=16, decode_chunk=8)
+    sched.reset()
+    runs = {"plain": serve_run("mixed plain", sched, prompts)}
+    for label, fused in (("spec fused", True), ("spec unfused", False)):
+        spec_sched = Scheduler(cfg, model, spec=SpecConfig(k=SPEC_K, fused=fused), **geom)
+        reqs, line = serve_run(f"mixed {label}", spec_sched, prompts)
+        per_k1, per_k2 = 7 * cfg.n_layers, cfg.n_layers
+        v = line["verify_steps"]
+        if (v == 0 or line["hinm_spmm"] < per_k1 * v or line["paged_decode_attn"] < per_k2 * v
+                or line["rollback_sweeps"] != v):
+            raise AssertionError(f"{label}: {line['hinm_spmm']} hinm_spmm and "
+                                 f"{line['paged_decode_attn']} paged_decode_attn launches, "
+                                 f"{line['rollback_sweeps']} rollbacks for {v} verify forwards")
+        runs[label] = (reqs, line)
+    plain, groups0 = runs["plain"][0], admission_groups(runs["plain"][0])
+    noise = prefill_width_noise(cfg, model, sched, prompts)
+    delta = max(bits["max_abs_dlogit"], noise)
+    partings = []
+    for label in ("spec fused", "spec unfused"):
+        reqs = runs[label][0]
+        groups = admission_groups(reqs)
+        for a, b in zip(plain, reqs):
+            if a.tokens == b.tokens:
+                continue
+            j = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y)
+            margin, drawn = parting_margin(cfg, model, sched, prompts, a, groups0[a.rid], j)
+            ok = (groups[a.rid] != groups0[a.rid] and drawn == a.tokens[j]
+                  and margin <= delta)
+            partings.append(dict(run=label, rid=a.rid, index=j, margin=margin,
+                                 group_plain=groups0[a.rid], group_spec=groups[a.rid],
+                                 replay_matches=drawn == a.tokens[j], near_tie=ok))
+    same = {label: sum(a.tokens == b.tokens for a, b in zip(plain, runs[label][0]))
+            for label in ("spec fused", "spec unfused")}
+    print(f"streams equal to the plain run's: fused {same['spec fused']}/{len(plain)}, "
+          f"unfused {same['spec unfused']}/{len(plain)} requests; near-tie threshold {delta:.3e} (verify vs decode "
+          f"{bits['max_abs_dlogit']:.3e}, prefill width {noise:.3e}); {len(partings)} "
+          f"parting point(s)" + "".join(
+              f"\n  {p['run']} request {p['rid']} at token {p['index']}: plain-run top-2 "
+              f"margin {p['margin']:.3e}, group {p['group_plain']} -> {p['group_spec']}, "
+              f"replay draws the plain token {p['replay_matches']}, near tie {p['near_tie']}"
+              for p in partings), flush=True)
+    bad = [p for p in partings if not p["near_tie"]]
+    if bad:
+        raise AssertionError(f"speculative streams part from the plain ones beyond the "
+                             f"near-tie rule: {bad}")
+    return {"runs": {k: v[1] for k, v in runs.items()}, "identical": same,
+            "near_tie_threshold": delta, "prefill_width_noise": noise, "partings": partings}
 
 
 @torch.no_grad()
@@ -844,6 +1327,9 @@ def main() -> int:
 
     phase("3. kernels")
     k1, layer, crossover, k2, k2_sweep, k3 = kernels_phase()
+    from repro_torch.configs.base import load_arch
+
+    prng_check = sampler_check(load_arch("qwen2_0_5b").vocab)
 
     phase("4. prune")
     cfg, model = full_model()
@@ -860,12 +1346,21 @@ def main() -> int:
     agree_phase(cfg, model)
 
     k2_rep = next(c for c in k2 if c["case"] == "s=1 window=0" and c["dtype"] == "bfloat16")
+    k2_verify = next(c for c in k2 if c["case"] == "verify s=4" and c["dtype"] == "bfloat16")
+    mixed = served["mixed"]["runs"]
+    paths = {"greedy": served} | {f"mixed {k}": v for k, v in mixed.items()}
+    by_path = {name: {p: paths[p][name] for p in paths}
+               for name in ("hinm_spmm", "paged_decode_attn")}
+    for name, counts in by_path.items():
+        if min(counts.values()) < 1:
+            raise AssertionError(f"{name} was not launched on every path: {counts}")
     kernels = [
         dict(name="hinm_spmm", route="cuda", source="src/repro_torch/csrc/hinm_spmm.cu",
              replaces="src/repro/kernels/hinm_spmm.py:99", launches=served["hinm_spmm"],
              timed="one call of one decode layer's 7 projections (q,k,v,o,gate,up,"
                    "down), B=4, bf16, V=32 (variant rows)",
              crossover={"rows_max_b": K1_CROSSOVER, "layer_ms_by_B": crossover},
+             launches_by_path=by_path["hinm_spmm"],
              **{**layer,
                 "max_abs_err": max([layer["max_abs_err"]] + [c["max_abs_err"] for c in k1]),
                 "max_rel_err": max([layer["max_rel_err"]] + [c["max_rel_err"] for c in k1])},
@@ -874,6 +1369,10 @@ def main() -> int:
              source="src/repro_torch/csrc/paged_attn.cu",
              replaces="src/repro/kernels/paged_attn.py:116",
              launches=served["paged_decode_attn"],
+             launches_by_path=by_path["paged_decode_attn"],
+             verify={k: k2_verify[k] for k in ("s", "n_splits", "ms", "plain_ms", "library_ms",
+                                               "sdpa_only_ms", "bound_ms", "bound_by",
+                                               "max_abs_err", "rows_bit_equal_s1")},
              max_abs_err=max(c["max_abs_err"] for c in k2),
              timed="one decode step of one layer: B=4, s=1, KV=2, G=7, hd=64, page "
                    "16, n_bt 16 with 1-16 pages allocated per slot at random, bf16",
@@ -898,6 +1397,14 @@ def main() -> int:
           f"{served['served_p50_step_ms']:.2f} ms; live-pool step: wall "
           f"{prof['wall_ms']:.2f} ms, host enqueue {prof['host_ms']:.2f} ms, device "
           f"{prof['device_ms']:.3f} ms")
+    for label, r in mixed.items():
+        print(f"main flow's mix, {label}: {r['decode_tok_s']:.1f} decode tok/s, p50 step "
+              f"{r['p50_step_ms']:.2f} ms" + (
+                  f", acceptance {r['acceptance_rate']:.3f}, {r['tokens_per_verify_step']:.3f} "
+                  f"tokens per verify" if r["verify_steps"] else ""))
+    print(f"spec: verify vs decode bit-equal {prof['spec_bits']['bit_equal']}; streams equal "
+          f"to plain {served['mixed']['identical']}; {len(served['mixed']['partings'])} "
+          f"near-tie parting(s); sampler on CUDA equal to CPU {prng_check['draws_equal']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -353,10 +353,13 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   __syncthreads();
 
   // p @ V: a thread owns one (row, chunk) over every kg-th key; the kg
-  // threads of a (row, chunk) are neighbouring lanes, summed by shuffles
+  // threads of a (row, chunk) are neighbouring lanes, summed by shuffles.
+  // kg comes from one query's G rows, not from Gs: each output row is then
+  // summed in the same order whatever S is, so a speculative verify's row
+  // i is bitwise the i-th single-row decode step's (same splits given)
   const int pairs = Gs * C;
   int kg = 1;
-  while (kg < 32 && 2 * kg * pairs <= THREADS) kg *= 2;
+  while (kg < 32 && 2 * kg * G * C <= THREADS) kg *= 2;
   for (int t0 = 0; t0 < pairs * kg; t0 += THREADS) {
     const int t = t0 + tid, pair = t / kg, kq = t - pair * kg;
     const bool valid = pair < pairs;

@@ -71,8 +71,10 @@ def hinm_spmm(x: torch.Tensor, p: PackedHiNM, variant: str | None = None) -> tor
     tensors to the plain versions); raises on anything the kernel does not
     take (a shape, or shared memory, beyond what the variant takes: the C
     side returns cudaErrorInvalidValue).  `variant` ("rows" or "mma")
-    overrides the C dispatch's choice, for measuring the crossover; the
-    port never passes it.  Counts one launch in ``hinm_spmm.launches``."""
+    overrides the C dispatch's choice: the speculative verify holds its
+    launches to the variant decode runs (`transformer.verify_step`), and
+    chip_smoke measures the crossover with it.  Counts one launch in
+    ``hinm_spmm.launches``."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"hinm_spmm: unknown variant {variant!r}; choose from {VARIANTS}")
     cfg = p.config

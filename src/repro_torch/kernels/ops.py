@@ -34,13 +34,16 @@ def _resolve(backend: str, t: torch.Tensor, extra=()) -> str:
     return backend
 
 
-def hinm_matmul(x: torch.Tensor, p: PackedHiNM, backend: str = "auto") -> torch.Tensor:
-    """y (..., n_out) = x (..., n_in) @ W_packed^T (rows in packed order)."""
+def hinm_matmul(x: torch.Tensor, p: PackedHiNM, backend: str = "auto",
+                variant: str | None = None) -> torch.Tensor:
+    """y (..., n_out) = x (..., n_in) @ W_packed^T (rows in packed order).
+    `variant` picks the CUDA kernel's variant ("rows" or "mma"; None = its
+    dispatch's choice); the plain versions ignore it."""
     lead = x.shape[:-1]
     xb = x.reshape(-1, x.shape[-1])
     backend = _resolve(backend, x, extra=("oracle",))
     if backend == "cuda":
-        y = _spmm.hinm_spmm(xb, p)
+        y = _spmm.hinm_spmm(xb, p, variant)
     elif backend == "torch":
         y = _spmm.hinm_spmm_ref(xb, p)
     else:

@@ -8,8 +8,11 @@ slot) with all of its pages in flight at once, and a second small kernel
 combines the splits' (m, l, acc) partials exactly.  It is bound by latency
 (a launch and two dependent DRAM round trips), not by its few hundred KB;
 the first design lost to it by walking the table page by page in 8
-blocks.  `split_count` picks the number of splits from the shapes alone,
-so a captured CUDA graph stays valid whatever the table holds.  The plain
+blocks.  `plan_splits` picks the number of splits from the shapes alone,
+so a captured CUDA graph stays valid whatever the table holds, and gives
+an s-row speculative verify the splits of single-row decode: with the
+kernel's per-row order fixed by one query's rows, verify row i is then
+bitwise decode step i.  The plain
 version, `paged_decode_attn_ref`, is exactly the reference the JAX tests
 hold the TPU kernel to: `paging.gather_view` + `layers._attn_chunked`.
 """
@@ -67,6 +70,20 @@ def split_count(b: int, kvh: int, n_bt: int, gs: int, page: int, hd: int,
     return min(n_bt, max(-(-n_bt // pages), -(-TARGET_BLOCKS // (b * kvh))))
 
 
+@functools.lru_cache(maxsize=None)
+def plan_splits(b: int, kvh: int, n_bt: int, g: int, s: int, page: int, hd: int,
+                itemsize: int) -> int:
+    """The split count a call of s query rows per slot runs: the s = 1
+    plan's (`split_count` at g rows), so that a speculative verify's row i
+    is summed over the same splits, in the same order, as the i-th
+    single-row decode step; the s-row plan only where the s = 1 plan's
+    splits do not fit shared memory at s * g rows."""
+    n = split_count(b, kvh, n_bt, g, page, hd, itemsize)
+    if s == 1 or _smem_bytes(s * g, hd, page, -(-n_bt // n), itemsize) <= SMEM_MAX:
+        return n
+    return split_count(b, kvh, n_bt, s * g, page, hd, itemsize)
+
+
 def split_ranges(n_bt: int, n_splits: int) -> list[tuple[int, int]]:
     """Table entries [start, stop) of each split, as the kernel cuts them."""
     return [(i * n_bt // n_splits, (i + 1) * n_bt // n_splits) for i in range(n_splits)]
@@ -98,7 +115,7 @@ def paged_decode_attn(
     split kernel, then the combine where there is more than one split).
     Returns (B, s, H, hd) in q's dtype; counts one launch per call in
     ``paged_decode_attn.launches`` and records the split count that
-    `split_count` picked in ``paged_decode_attn.last_splits``."""
+    `plan_splits` picked in ``paged_decode_attn.last_splits``."""
     out, paged_decode_attn.last_splits = _launch(q, k_pool, v_pool, kpos_pool, bt,
                                                  q_pos, window)
     paged_decode_attn.launches += 1
@@ -107,7 +124,7 @@ def paged_decode_attn(
 
 def _launch(q, k_pool, v_pool, kpos_pool, bt, q_pos, window, n_splits=None):
     """Check the arguments, allocate the workspace and launch the kernels
-    with `n_splits` splits (`split_count`'s plan where None).  Returns the
+    with `n_splits` splits (`plan_splits`'s plan where None).  Returns the
     output and the split count it ran."""
     b, s, h, hd = q.shape
     n_pages, page, kvh, hd2 = k_pool.shape
@@ -135,7 +152,7 @@ def _launch(q, k_pool, v_pool, kpos_pool, bt, q_pos, window, n_splits=None):
             f"{tuple(bt.shape)}, q_pos {tuple(q_pos.shape)}")
     gs = s * (h // kvh)
     if n_splits is None:
-        n_splits = split_count(b, kvh, n_bt, gs, page, hd, q.element_size())
+        n_splits = plan_splits(b, kvh, n_bt, h // kvh, s, page, hd, q.element_size())
     elif not 1 <= n_splits <= n_bt:
         raise ValueError(f"paged_decode_attn: n_splits {n_splits} outside [1, n_bt {n_bt}]")
     out = torch.empty_like(q)

@@ -130,14 +130,16 @@ def attention(
     cache: dict | None = None,    # one layer's views of the stacked cache
     kv_block: int = 1024,
     backend: str = "auto",
+    spec: bool = False,           # multi-token speculative verify write
+    variant: str | None = None,   # K1 variant of the packed projections
 ) -> torch.Tensor:
     """GQA attention with RoPE.  Returns out (B, S, D); a cache, if given,
     is updated in place (its ``pos`` advances by S)."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = M.linear(p.wq, x, backend).reshape(b, s, h, hd)
-    k = M.linear(p.wk, x, backend).reshape(b, s, kvh, hd)
-    v = M.linear(p.wv, x, backend).reshape(b, s, kvh, hd)
+    q = M.linear(p.wq, x, backend, variant).reshape(b, s, h, hd)
+    k = M.linear(p.wk, x, backend, variant).reshape(b, s, kvh, hd)
+    v = M.linear(p.wv, x, backend, variant).reshape(b, s, kvh, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -145,15 +147,11 @@ def attention(
         out = _attn_chunked(q, k, v, positions, positions, True, cfg.window, kv_block)
     elif paging.is_paged(cache):
         # Paged pool: the slot's rows live in shared physical pages resolved
-        # through its block table; the new row is written straight to its
-        # physical page (rows outside the slot's allocation — idle lanes —
-        # go to the scratch page), then the paged-attention kernel walks
-        # the block table.
-        if s != 1:
-            raise ValueError(
-                "paged KV caches take single-token decode here; prefill runs "
-                "on a stripe template (multi-token paged writes wait for the "
-                "speculative-decoding slice)")
+        # through its block table.  The s new rows (one at decode, k+1 in a
+        # speculative verify) are written straight to their physical pages
+        # — rows outside the slot's allocation, and every row of an idle
+        # lane, go to the scratch page — then the paged-attention kernel
+        # walks the block table with the causal mask over the s rows.
         pos, bt, alloc = cache["pos"], cache["bt"], cache["alloc"]
         page = cache["k"].shape[1]                          # (n_pages, page, KV, hd)
         phys_s, off, valid = paging.spec_row_locations(
@@ -186,17 +184,34 @@ def attention(
                 cv[i] = torch.roll(v[i, -smax:].to(cv.dtype), sh, dims=0)
                 ckpos[i] = torch.roll(positions[i, -smax:].to(torch.int32), sh, dims=0)
         else:
-            slot = torch.remainder(pos, smax) if cfg.window else pos
-            start = torch.clamp(slot, 0, smax - s)
-            idx = (start[:, None] + torch.arange(s, device=x.device)[None, :]).long()
             bidx = torch.arange(b, device=x.device)[:, None]
-            ck[bidx, idx] = k.to(ck.dtype)
-            cv[bidx, idx] = v.to(cv.dtype)
-            ckpos[bidx, idx] = positions.to(torch.int32)
+            if spec and s > 1:
+                # speculative verify: the s rows at each lane's own offsets;
+                # rows past the stripe end are dropped, as the reference's
+                # scatter drops them (over-reservation rows the acceptance
+                # cap rejects) — they land in a spare row
+                if cfg.window:
+                    raise ValueError("a multi-token verify write cannot wrap a "
+                                     "windowed ring")
+                idx = pos.long()[:, None] + torch.arange(s, device=x.device)[None, :]
+                idx = torch.where(idx < smax, idx, smax)
+                spare = (b, 1) + tuple(ck.shape[2:])
+                for name, new in (("k", k), ("v", v), ("kpos", positions)):
+                    leaf = cache[name]
+                    pad = torch.cat([leaf, leaf.new_zeros(spare[: leaf.dim()])], dim=1)
+                    pad[bidx, idx] = new.to(leaf.dtype)
+                    leaf.copy_(pad[:, :smax])
+            else:
+                slot = torch.remainder(pos, smax) if cfg.window else pos
+                start = torch.clamp(slot, 0, smax - s)
+                idx = (start[:, None] + torch.arange(s, device=x.device)[None, :]).long()
+                ck[bidx, idx] = k.to(ck.dtype)
+                cv[bidx, idx] = v.to(cv.dtype)
+                ckpos[bidx, idx] = positions.to(torch.int32)
             out = _attn_chunked(q, ck, cv, positions, ckpos, True, cfg.window,
                                 kv_block)
         pos += s
-    return M.linear(p.wo, out.reshape(b, s, h * hd), backend)
+    return M.linear(p.wo, out.reshape(b, s, h * hd), backend, variant)
 
 
 # ---------------------------------------------------------------------------
@@ -222,13 +237,14 @@ def mlp_init(cfg, *, generator, device, d_ff: int | None = None) -> MLP:
                wd=M.dense_init(f, cfg.d_model, cfg.dtype, bias=True, **kw))
 
 
-def mlp(p: MLP, x: torch.Tensor, cfg, backend: str = "auto") -> torch.Tensor:
+def mlp(p: MLP, x: torch.Tensor, cfg, backend: str = "auto",
+        variant: str | None = None) -> torch.Tensor:
     if cfg.act == "swiglu":
-        gate = F.silu(M.linear(p.wg, x, backend).float())
-        up = M.linear(p.wu, x, backend).float()
-        return M.linear(p.wd, (gate * up).to(x.dtype), backend)
-    hid = F.gelu(M.linear(p.wu, x, backend).float(), approximate="tanh")
-    return M.linear(p.wd, hid.to(x.dtype), backend)
+        gate = F.silu(M.linear(p.wg, x, backend, variant).float())
+        up = M.linear(p.wu, x, backend, variant).float()
+        return M.linear(p.wd, (gate * up).to(x.dtype), backend, variant)
+    hid = F.gelu(M.linear(p.wu, x, backend, variant).float(), approximate="tanh")
+    return M.linear(p.wd, hid.to(x.dtype), backend, variant)
 
 
 def norm_init(cfg, *, device, d: int | None = None) -> M.Norm:

@@ -53,12 +53,14 @@ class Linear(nn.Module):
             self.register_buffer("w", w)
 
 
-def linear(p: Linear, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+def linear(p: Linear, x: torch.Tensor, backend: str = "auto",
+           variant: str | None = None) -> torch.Tensor:
     """Dense or HiNM-packed projection; packed rows are already consistent
-    with consumers, so no runtime reorder.  `backend` reaches the packed
-    matmul's dispatch; a dense weight is a plain matmul."""
+    with consumers, so no runtime reorder.  `backend` and `variant` (the
+    K1 variant, None = its dispatch's choice) reach the packed matmul's
+    dispatch; a dense weight is a plain matmul."""
     if isinstance(p.w, PackedHiNM):
-        y = kops.hinm_matmul(x, p.w, backend)
+        y = kops.hinm_matmul(x, p.w, backend, variant)
     else:
         y = x @ p.w.to(x.dtype)
     if p.b is not None:

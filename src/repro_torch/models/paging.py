@@ -138,3 +138,59 @@ def spec_row_locations(bt: torch.Tensor, alloc: torch.Tensor, pos0: torch.Tensor
     valid = torch.div(vpos, page, rounding_mode="floor") < alloc[:, None]
     phys = torch.gather(bt, 1, logical.long())
     return phys, off, valid
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: commit/rollback of multi-token writes
+# ---------------------------------------------------------------------------
+#
+# A verify step writes n rows per slot from the slot's position through the
+# same addressing as single-token decode (`spec_row_locations`).  Rollback
+# keeps the accepted prefix and sweeps the rejected suffix's `kpos` back to
+# the sentinel: the K/V bytes stay (masked exactly like unwritten rows) and
+# the next verify overwrites them, so no page moves.  Both helpers write the
+# cache in place and return it.
+
+
+def rollback_attn_paged(pool: dict, pos0: torch.Tensor, keep: torch.Tensor, n: int,
+                        window: bool) -> dict:
+    """Keep ``keep`` (B,) of the ``n`` rows written from ``pos0`` (B,) in a
+    paged attention stack: the rejected rows' kpos return to the sentinel
+    and every layer's ``pos`` rewinds to ``pos0 + keep``.  Sweeps of kept or
+    out-of-allocation rows are redirected to the scratch page (no-ops)."""
+    page = pool["k"].shape[2]
+    phys, off, valid = spec_row_locations(pool["bt"][0], pool["alloc"][0], pos0, n,
+                                          page, window)
+    drop = torch.arange(n, device=pos0.device)[None, :] >= keep[:, None]
+    phys_sw = torch.where(valid & drop, phys, SCRATCH_PAGE)
+    kpos = pool["kpos"]
+    # the sentinel as a device tensor: a Python scalar here would be a
+    # host-to-device copy per call (and cannot be captured in a CUDA graph)
+    kpos[:, phys_sw.long(), off.long()] = torch.full(
+        (kpos.shape[0],) + tuple(phys_sw.shape), KPOS_SENTINEL, dtype=kpos.dtype,
+        device=kpos.device)
+    pool["pos"][:] = (pos0 + keep).to(torch.int32)[None, :]
+    return pool
+
+
+def rollback_attn_stripe(cache: dict, pos0: torch.Tensor, keep: torch.Tensor, n: int,
+                         window: bool) -> dict:
+    """Stripe-layout twin of `rollback_attn_paged`: the rejected rows' kpos
+    back to the sentinel at their stripe (or ring) slots, ``pos`` rewound.
+    Rows past the stripe end, which the verify's write dropped, are
+    dropped here too."""
+    smax = cache["k"].shape[2]
+    b = pos0.shape[0]
+    ar = torch.arange(n, device=pos0.device)
+    idx = pos0.to(torch.int64)[:, None] + ar[None, :]
+    if window:
+        idx = torch.remainder(idx, smax)
+    drop = (ar[None, :] >= keep[:, None]) & (idx < smax)
+    # the swept rows as a (B, smax) mask; kept and dropped-at-write rows
+    # land in a spare column
+    swept = torch.zeros((b, smax + 1), dtype=torch.bool, device=pos0.device)
+    swept.scatter_(1, torch.where(drop, idx, smax), True)
+    kpos = cache["kpos"]
+    kpos.copy_(torch.where(swept[None, :, :smax], KPOS_SENTINEL, kpos))
+    cache["pos"][:] = (pos0 + keep).to(torch.int32)[None, :]
+    return cache

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.core.types import PackedHiNM
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import module as M
@@ -27,10 +28,11 @@ class Block(nn.Module):
         super().__init__()
         self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
 
-    def forward(self, x, positions, cfg, cache=None, backend: str = "auto"):
+    def forward(self, x, positions, cfg, cache=None, backend: str = "auto",
+                spec: bool = False, variant: str | None = None):
         x = x + L.attention(self.attn, L.norm(self.ln1, x, cfg), positions, cfg,
-                            cache, backend=backend)
-        return x + L.mlp(self.mlp, L.norm(self.ln2, x, cfg), cfg, backend)
+                            cache, backend=backend, spec=spec, variant=variant)
+        return x + L.mlp(self.mlp, L.norm(self.ln2, x, cfg), cfg, backend, variant)
 
 
 class Transformer(nn.Module):
@@ -69,10 +71,11 @@ def _layer_cache(cache: dict, i: int) -> dict:
     return {k: v[i] for k, v in cache.items()}
 
 
-def _run_blocks(model, cfg, x, positions, cache=None, backend="auto"):
+def _run_blocks(model, cfg, x, positions, cache=None, backend="auto", spec=False,
+                variant=None):
     for i, blk in enumerate(model.blocks):
         x = blk(x, positions, cfg, None if cache is None else _layer_cache(cache, i),
-                backend)
+                backend, spec, variant)
     return x
 
 
@@ -159,6 +162,65 @@ def decode_step(model, cfg, tokens, cache, backend: str = "auto"):
     x = _run_blocks(model, cfg, x, positions, cache, backend)
     x = L.norm(model.ln_f, x, cfg)
     return logits_fn(model, x[:, 0])
+
+
+# serve/spec: one parallel forward verifies all candidate rows (attention
+# is the only stateful block, and its causal mask makes the multi-token
+# write equivalent to sequential steps on non-windowed caches)
+SPEC_VERIFY = "parallel"
+
+
+def cache_position(cfg, cache) -> torch.Tensor:
+    """Per-slot cache write position (B,) int32, a copy (the cache's own
+    counters advance in place)."""
+    return cache["pos"][0].clone()
+
+
+def _decode_variant(model, b: int, x: torch.Tensor) -> str | None:
+    """The K1 variant a decode step over `b` slots runs, for CUDA tensors
+    of packed weights (None elsewhere: the plain versions take no variant,
+    and a dense weight is a plain matmul)."""
+    w = model.blocks[0].mlp.wd.w
+    if x.device.type != "cuda" or not isinstance(w, PackedHiNM):
+        return None
+    from repro_torch.kernels import hinm_spmm
+
+    return hinm_spmm.variant(b, w, x.dtype)
+
+
+def verify_step(model, cfg, tokens, cache, backend: str = "auto"):
+    """Speculative verify: one forward over ``tokens (B, S)`` — the pending
+    token plus S-1 draft candidates per slot — writing all S cache rows in
+    place through the decode write path.  Returns (logits (B, S,
+    vocab_padded), undo); undo is None (a parallel verifier sweeps the
+    rejected rows, `cache_rollback`).
+
+    Row i's logits are meant to be bitwise decode step i's, so that a
+    speculative stream is the non-speculative one: the packed projections
+    run the K1 variant decode runs for the B slots ("rows" sums every
+    output element in an order that does not depend on the batch) and K2
+    takes decode's split plan.  The dense vocab projection is one matmul
+    over all B * S rows; chip_smoke checks on the card that its rows come
+    out bitwise as at decode's B rows."""
+    b, s = tokens.shape
+    x = M.embed(model.embed, tokens)
+    positions = (cache["pos"][0][:, None]
+                 + torch.arange(s, dtype=torch.int32, device=x.device)[None, :])
+    x = _run_blocks(model, cfg, x, positions, cache, backend, spec=True,
+                    variant=_decode_variant(model, b, x))
+    x = L.norm(model.ln_f, x, cfg)
+    return logits_fn(model, x), None
+
+
+def cache_rollback(cfg, cache, undo, pos0, keep, n_written):
+    """Keep ``keep (B,)`` of the ``n_written`` speculative rows per slot, in
+    place: sweep the rejected suffix's kpos to the sentinel and rewind
+    every layer's pos to ``pos0 + keep``."""
+    if paging.is_paged(cache):
+        return paging.rollback_attn_paged(cache, pos0, keep, n_written,
+                                          window=bool(cfg.window))
+    return paging.rollback_attn_stripe(cache, pos0, keep, n_written,
+                                       window=bool(cfg.window))
 
 
 def hinm_plan(cfg) -> list[PruneSpec]:

@@ -5,6 +5,7 @@
   logits_fn(model, cfg, x)                -> vocab projection
   make_cache(cfg, batch, max_seq, ...)    -> decode cache
   prefill / decode_step                   -> serving
+  verify_step / cache_rollback / cache_position -> speculative decoding
   pack_params / unpack_params             -> serve-time weight format
   hinm_plan(cfg) / perm_graph(cfg)        -> prune specs / their PermGraph
 """
@@ -48,6 +49,32 @@ def prefill(model, cfg, tokens, cache, n_rows=None, backend: str = "auto"):
 
 def decode_step(model, cfg, tokens, cache, backend: str = "auto"):
     return model_for(cfg).decode_step(model, cfg, tokens, cache, backend)
+
+
+def supports_spec_decode(cfg) -> bool:
+    """Whether the family has the speculative verify/rollback pair: a
+    parallel verifier (pure attention) on a config without a window (a
+    wrapped multi-token write would clobber live ring rows)."""
+    return getattr(model_for(cfg), "SPEC_VERIFY", None) == "parallel" and not cfg.window
+
+
+def verify_step(model, cfg, tokens, cache, backend: str = "auto"):
+    """Speculative verify: forward `tokens (B, S)` (pending token + S-1
+    drafts per slot), writing all S cache rows in place.  Returns
+    (logits (B, S, vocab_padded), undo)."""
+    return model_for(cfg).verify_step(model, cfg, tokens, cache, backend)
+
+
+def cache_rollback(cfg, cache, undo, pos0, keep, n_written):
+    """Commit/rollback after a verify, in place: keep `keep (B,)` of the
+    `n_written` speculative rows per slot and rewind the position counters
+    to `pos0 + keep`."""
+    return model_for(cfg).cache_rollback(cfg, cache, undo, pos0, keep, n_written)
+
+
+def cache_position(cfg, cache):
+    """Per-slot cache write position (B,) int32 (a copy)."""
+    return model_for(cfg).cache_position(cfg, cache)
 
 
 def supports_bucketed_prefill(cfg) -> bool:

@@ -1,11 +1,16 @@
-"""Continuous-batching serving runtime (port of `repro.serve`, synchronous
-greedy path): `Scheduler` over a paged `SlotKVCache`, `ServeEngine` facade.
+"""Continuous-batching serving runtime (port of `repro.serve`, the
+synchronous path): `Scheduler` over a paged `SlotKVCache` with greedy and
+sampled requests and n-gram speculative decoding (`SpecConfig`), and the
+`ServeEngine` facade.
 """
+from repro_torch.serve import sampler
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.kv import SlotKVCache
 from repro_torch.serve.request import (Request, RequestState, SamplingParams,
                                        ServeStats)
 from repro_torch.serve.scheduler import Scheduler, param_bytes
+from repro_torch.serve.spec import NgramDrafter, SpecConfig
 
-__all__ = ["Request", "RequestState", "SamplingParams", "Scheduler",
-           "ServeEngine", "ServeStats", "SlotKVCache", "param_bytes"]
+__all__ = ["NgramDrafter", "Request", "RequestState", "SamplingParams", "Scheduler",
+           "ServeEngine", "ServeStats", "SlotKVCache", "SpecConfig", "param_bytes",
+           "sampler"]

@@ -19,7 +19,9 @@ Stripe mode (``page=None``): each lane pins a full ``max_seq`` stripe.
 
 The pool is updated in place where the reference donated its buffers.
 ``slot_len`` mirrors each slot's actual cache rows; ``slot_capacity`` is
-the row reservation made at insert.
+the row reservation made at insert.  ``rollback`` commits a speculative
+verify's accepted rows and sweeps the rest; ``rollback_sweeps`` counts the
+sweeps applied to the pool.
 """
 from __future__ import annotations
 
@@ -161,6 +163,27 @@ class SlotKVCache:
         self._slot_cap[slot] = 0
         self._free.append(slot)
 
+    def rollback(self, pos0, keep, n_written: int, undo=None) -> None:
+        """Speculative commit/rollback, in place: of the ``n_written`` rows a
+        verify step wrote per slot from ``pos0`` (B,), keep the accepted
+        ``keep`` (B,) and sweep the rest (kpos back to the sentinel; a row
+        that went to the scratch page is swept there, a no-op), with every
+        position counter rewound to ``pos0 + keep``.  No page moves: the
+        free list, `pool_bytes` and the slot accounting are untouched (the
+        caller advances ``slot_len`` by the tokens it harvests, which equal
+        ``keep``).  Counts one sweep in ``rollback_sweeps``."""
+        dev = self.device
+        zoo.cache_rollback(self.cfg, self.cache, undo,
+                           torch.as_tensor(pos0, dtype=torch.int32, device=dev),
+                           torch.as_tensor(keep, dtype=torch.int32, device=dev), n_written)
+        self.rollback_sweeps += 1
+
+    def note_scan_rollbacks(self, n: int) -> None:
+        """Count `n` rollback sweeps the scheduler's fused loop applied
+        through `zoo.cache_rollback` itself, so ``rollback_sweeps`` means
+        "sweeps applied to the pool" in both modes."""
+        self.rollback_sweeps += n
+
     def reset_all(self) -> None:
         if self.paged:
             self.cache = zoo.make_cache(self.cfg, self.n_slots, self.max_seq,
@@ -175,3 +198,4 @@ class SlotKVCache:
         self._free = list(range(self.n_slots))
         self.slot_len = np.zeros((self.n_slots,), np.int64)
         self._slot_cap = np.zeros((self.n_slots,), np.int64)
+        self.rollback_sweeps = 0

@@ -8,9 +8,10 @@ Every scheduler step:
      bucket and padded with sentinel-masked rows, and inserted into free
      slots; a paged pool also gates admission on free KV pages.
      `policy="static"` instead gang-admits only when the pool is idle;
-  2. decode — a chunk of `decode_chunk` decode steps with greedy sampling
-     and per-slot EOS / length early-exit masking, all on the device; the
-     only host transfer is the (chunk, slots) emitted-token matrix once per
+  2. decode — a chunk of `decode_chunk` decode steps with on-device
+     sampling (greedy, or temperature / top-k / top-p per slot) and
+     per-slot EOS / length early-exit masking, all on the device; the only
+     host transfer is the (chunk, slots) emitted-token matrix once per
      chunk (the reference runs the chunk as one jitted `lax.scan`);
   3. harvest — emitted tokens are appended to their requests; finished
      slots are reset and returned to the free list.
@@ -19,9 +20,19 @@ Inactive lanes keep stepping inside a chunk (fixed-shape batch); their
 cache writes land under their own lane's `kpos` mask or on the scratch
 page, and are wiped by the slot reset on reuse.
 
-What waits for later slices: sampled requests (`temperature > 0` raises),
-speculative decoding, prefix sharing, chunked prefill, async admission,
-telemetry, the flight recorder and multi-device meshes.
+Sampling draws use per-slot, per-position keys (`sampler.fold_keys`, the
+port's bit-exact threefry): a request's sampled stream depends only on
+its seed and token index, never on its slot or co-residents.
+
+With `spec=SpecConfig(...)` the decode phase runs draft/verify cycles
+instead (`serve/spec`): the n-gram drafter proposes `k` tokens per slot,
+one multi-token verify forward scores them all, and the pool keeps the
+accepted rows while sweeping the rejected ones.  Greedy and "match"-mode
+sampled requests emit exactly the non-speculative stream.
+
+What waits for later slices: the model drafter, prefix sharing, chunked
+prefill, async admission, telemetry, the flight recorder and multi-device
+meshes.
 """
 from __future__ import annotations
 
@@ -34,7 +45,8 @@ import torch
 from repro_torch.core.types import PackedHiNM
 from repro_torch.device import resolve_device
 from repro_torch.models import zoo
-from repro_torch.serve import sampler
+from repro_torch.serve import prng, sampler
+from repro_torch.serve import spec as spec_mod
 from repro_torch.serve.kv import SlotKVCache
 from repro_torch.serve.request import Request, RequestState, ServeStats
 
@@ -56,9 +68,10 @@ def param_bytes(model) -> tuple[int, int]:
 
 class Scheduler:
     def __init__(self, cfg, params, max_slots: int = 4, max_seq: int = 512,
-                 decode_chunk: int = 8, policy: str = "continuous",
+                 decode_chunk: int = 8, rng_seed: int = 0, policy: str = "continuous",
                  page: int | None = 64, n_pages: int | str | None = "auto",
-                 packed: str = "auto", device="cuda"):
+                 spec: spec_mod.SpecConfig | None = None, packed: str = "auto",
+                 device="cuda"):
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown admission policy {policy!r}")
         if packed not in ("auto", "pack"):
@@ -84,29 +97,76 @@ class Scheduler:
         # out-of-vocab EOS (full-tokenizer ids on reduced test configs)
         # disables EOS termination rather than matching a wrong token
         self.default_eos = eos if 0 <= eos < cfg.vocab else -1
+        self.spec = spec
+        self.drafter = None
+        if spec is not None:
+            self._check_spec(spec)
         self.kv = SlotKVCache(cfg, max_slots, max_seq, page=page, n_pages=n_pages,
                               device=self.device)
         self._queue: collections.deque[Request] = collections.deque()
         self._running: dict[int, Request] = {}
         self._active_host = np.zeros((max_slots,), bool)
-        self._reset_state()
+        self._reset_state(rng_seed)
         pb, db = param_bytes(params)
         self.stats = ServeStats(0.0, 0.0, 0, pb, db)
 
-    def _reset_state(self) -> None:
+    def _check_spec(self, spec) -> None:
+        """Validate a SpecConfig, resolve its drafter and the cycle count."""
+        cfg = self.cfg
+        if not zoo.supports_spec_decode(cfg):
+            raise ValueError(f"{cfg.family!r} (window={cfg.window}) has no "
+                             "speculative verify path")
+        if spec.k < 1:
+            raise ValueError("SpecConfig.k must be >= 1")
+        if spec.k + 1 > self.max_seq:
+            raise ValueError("SpecConfig.k + 1 exceeds max_seq")
+        if spec.cycles is not None and spec.cycles < 1:
+            raise ValueError("SpecConfig.cycles must be >= 1 (or None for the "
+                             "decode_chunk-derived default)")
+        # fused: cycles cost no host round trip, so one per chunk step keeps
+        # the non-spec chunk's token floor; unfused: about one chunk's worth
+        # of emitted rows per step
+        self._spec_cycles = (spec.cycles if spec.cycles is not None
+                             else (self.decode_chunk if spec.fused
+                                   else max(1, self.decode_chunk // (spec.k + 1))))
+        d = spec.drafter
+        if d == "ngram":
+            d = spec_mod.NgramDrafter(spec.ngram)
+        if d == "model" or getattr(d, "kind", None) == "model":
+            raise ValueError(spec_mod.drafter.MODEL_DRAFTER_WAITS)
+        if getattr(d, "kind", None) != "ngram":
+            raise ValueError(f"unknown drafter {d!r}: pass \"ngram\" or an "
+                             "NgramDrafter instance")
+        self.drafter = d
+
+    def _reset_state(self, rng_seed: int) -> None:
         s, dev = self.max_slots, self.device
         self._tok = torch.zeros((s, 1), dtype=torch.int32, device=dev)
         self._active = torch.zeros((s,), dtype=torch.bool, device=dev)
         self._rem = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self._temp = torch.zeros((s,), dtype=torch.float32, device=dev)
+        self._topk = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self._topp = torch.zeros((s,), dtype=torch.float32, device=dev)
         self._eos = torch.full((s,), -1, dtype=torch.int32, device=dev)
+        self._seeds = torch.zeros((s,), dtype=torch.int64, device=dev)
+        self._gens = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self._keff = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self._match = torch.ones((s,), dtype=torch.bool, device=dev)
+        # per-slot token history (prompt + emitted): the n-gram drafter's
+        # lookup corpus, sized for prompt + max_new (max_seq bounds both)
+        self._hist = torch.zeros((s, self.max_seq), dtype=torch.int32, device=dev)
+        self._hlen = torch.zeros((s,), dtype=torch.int32, device=dev)
+        # base PRNG key, never split: every draw folds in (request seed,
+        # token index), so streams are reproducible per request
+        self._key = prng.PRNGKey(rng_seed, device=dev)
         self._active_host[:] = False
 
-    def reset(self) -> None:
+    def reset(self, rng_seed: int = 0) -> None:
         """Drop all queued/running requests and restore pristine state."""
         self._queue.clear()
         self._running.clear()
         self.kv.reset_all()
-        self._reset_state()
+        self._reset_state(rng_seed)
         self.stats = ServeStats(0.0, 0.0, 0, self.stats.packed_param_bytes,
                                 self.stats.dense_param_bytes)
 
@@ -129,11 +189,6 @@ class Scheduler:
         return max(n_tokens, min(b, self.max_seq))
 
     def submit(self, req: Request) -> None:
-        if req.params.temperature > 0:
-            raise ValueError(
-                f"request {req.rid}: sampled decoding (temperature > 0) is not "
-                "ported yet — the PRNG decision is open in ROADMAP.md (Queue 1 "
-                "item 5); use temperature 0 (greedy)")
         rows = len(req.prompt)
         if rows + req.params.max_new_tokens > self.max_seq:
             raise ValueError(
@@ -143,6 +198,9 @@ class Scheduler:
                 > self.kv.n_alloc_pages):
             raise ValueError(f"request {req.rid}: needs more KV pages than the "
                              "pool allocates — raise n_pages")
+        if req.params.spec_accept not in ("match", "reject"):
+            raise ValueError(f"request {req.rid}: unknown spec_accept "
+                             f"{req.params.spec_accept!r}")
         req.state = RequestState.QUEUED
         req.submit_time = time.perf_counter()
         self._queue.append(req)
@@ -151,6 +209,15 @@ class Scheduler:
         if req.params.eos_id is not None:
             return req.params.eos_id if 0 <= req.params.eos_id < self._vocab else -1
         return self.default_eos
+
+    def _eff_seed(self, req: Request) -> int:
+        return req.params.seed if req.params.seed is not None else req.rid
+
+    def _eff_keff(self, req: Request) -> int:
+        if self.spec is None:
+            return 0
+        k = req.params.spec_k
+        return self.spec.k if k is None else max(0, min(k, self.spec.k))
 
     def _finish(self, req: Request, finished: list[Request]) -> None:
         req.state = RequestState.FINISHED
@@ -193,8 +260,9 @@ class Scheduler:
 
     @torch.no_grad()
     def _admit_group(self, group: list[Request], finished: list[Request]) -> None:
-        """Prefill an admission group, sample its first tokens (one host
-        sync per group = TTFT) and arm its slots."""
+        """Prefill an admission group, draw its first tokens (token index 0
+        of each request's stream; one host sync per group = TTFT) and arm
+        its slots."""
         k = len(group)
         t0 = time.perf_counter()
         for req in group:
@@ -209,8 +277,8 @@ class Scheduler:
             k_b *= 2
         tokens = np.zeros((k_b, s_b), np.int32)
         rows = np.zeros((k_b,), np.int32)
-        for i in range(k_b):
-            r = group[min(i, k - 1)]
+        padded = [group[min(i, k - 1)] for i in range(k_b)]
+        for i, r in enumerate(padded):
             tokens[i, : len(r.prompt)] = r.prompt
             rows[i] = len(r.prompt)
         n_rows = torch.from_numpy(rows).to(self.device)
@@ -218,9 +286,22 @@ class Scheduler:
         cache_k = self.kv.template(k_b)
         last = zoo.prefill(self.params, self.cfg, tokens, cache_k, n_rows=n_rows)
         logits = zoo.logits_fn(self.params, self.cfg, last)[:, : self._vocab].float()
-        first_np = sampler.greedy(logits).cpu().numpy()   # one sync per group
+        if any(r.params.temperature > 0 for r in group):
+            def dev(vals, dtype):
+                return torch.tensor(vals, dtype=dtype, device=self.device)
+
+            seeds = dev([self._eff_seed(r) & prng.M32 for r in padded], torch.int64)
+            keys = sampler.fold_keys(self._key, seeds, torch.zeros_like(seeds))
+            first = sampler.sample(
+                keys, logits, dev([r.params.temperature for r in padded], torch.float32),
+                dev([r.params.top_k for r in padded], torch.int32),
+                dev([r.params.top_p for r in padded], torch.float32))
+        else:
+            first = sampler.greedy(logits)
+        first_np = first.cpu().numpy()   # one sync per group
         now = time.perf_counter()
         self.stats.prefill_rows += sum(len(r.prompt) for r in group)
+        armed = []
         for row, req in enumerate(group):
             p = req.params
             eos = self._eff_eos(req)
@@ -235,45 +316,92 @@ class Scheduler:
             slot = self.kv.acquire()
             self.kv.insert(slot, cache_k, len(req.prompt), row=row,
                            reserve=self._reserve_rows(req))
-            self._tok[slot, 0] = first_i
-            self._active[slot] = True
-            self._rem[slot] = p.max_new_tokens - 1
-            self._eos[slot] = eos
+            armed.append((slot, req, first_i, eos))
             self._active_host[slot] = True
             req.state = RequestState.DECODING
             req.slot = slot
             self._running[slot] = req
+        if armed:
+            self._arm(armed)
         self.stats.prefill_seconds += time.perf_counter() - t0
+
+    def _arm(self, armed: list[tuple]) -> None:
+        """Arm the per-slot decode state of freshly admitted slots, one copy
+        per state vector: (slot, request, first token, effective EOS)."""
+        idx = torch.tensor([a[0] for a in armed], dtype=torch.int64, device=self.device)
+
+        def put(dst, vals):
+            dst[idx] = torch.tensor(vals, dtype=dst.dtype).to(self.device)
+
+        reqs = [a[1] for a in armed]
+        put(self._tok[:, 0], [a[2] for a in armed])
+        put(self._active, [True] * len(armed))
+        put(self._rem, [r.params.max_new_tokens - 1 for r in reqs])
+        put(self._temp, [r.params.temperature for r in reqs])
+        put(self._topk, [r.params.top_k for r in reqs])
+        put(self._topp, [r.params.top_p for r in reqs])
+        put(self._eos, [a[3] for a in armed])
+        put(self._seeds, [self._eff_seed(r) & prng.M32 for r in reqs])
+        put(self._gens, [1] * len(armed))            # the first token was index 0
+        if self.spec is not None:
+            put(self._keff, [self._eff_keff(r) for r in reqs])
+            put(self._match, [r.params.spec_accept == "match" for r in reqs])
+            rows = [spec_mod.seed_history(r.prompt, a[2], self.max_seq) for r, a in
+                    zip(reqs, armed)]
+            put(self._hist, np.stack([row for row, _ in rows]))
+            put(self._hlen, [n for _, n in rows])
 
     def _release_slot(self, slot: int) -> None:
         self.kv.release(slot)
         self._running.pop(slot)
         self._active_host[slot] = False
 
+    def _stochastic(self) -> tuple[bool, bool]:
+        """(some running request samples, some sampled one uses "reject"):
+        the draw and the rejection pipeline run only when a lane needs
+        them, so an all-greedy pool pays a plain argmax."""
+        sampled = [r for r in self._running.values() if r.params.temperature > 0]
+        return bool(sampled), any(r.params.spec_accept == "reject" for r in sampled)
+
+    def _draw(self, logits: torch.Tensor, gens: torch.Tensor, stochastic: bool):
+        """Each slot's next token from its (B, V) f32 logits at token index
+        `gens`: its own sampling parameters, or argmax for an all-greedy
+        pool."""
+        if not stochastic:
+            return sampler.greedy(logits)
+        keys = sampler.fold_keys(self._key, self._seeds, gens)
+        return sampler.sample(keys, logits, self._temp, self._topk, self._topp)
+
     @torch.no_grad()
-    def _run_chunk(self) -> torch.Tensor:
-        """`decode_chunk` greedy decode steps over the whole slot pool, on
-        the device; returns the (chunk, slots) emitted tokens (-1 where a
-        lane was inactive).  Per step: emit where active, count down the
-        budget, stop a lane at its EOS or when its budget is spent."""
+    def _run_chunk(self, stochastic: bool) -> torch.Tensor:
+        """`decode_chunk` decode steps over the whole slot pool, on the
+        device; returns the (chunk, slots) emitted tokens (-1 where a lane
+        was inactive).  Per step: draw where active (`_draw`), count the
+        token index and the budget, stop a lane at its EOS or when its
+        budget is spent."""
         emits = []
-        tok, active, rem = self._tok, self._active, self._rem
+        tok, active, rem, gens = self._tok, self._active, self._rem, self._gens
         for _ in range(self.decode_chunk):
             logits = zoo.decode_step(self.params, self.cfg, tok, self.kv.cache)
-            nxt = sampler.greedy(logits[:, : self._vocab].float())
+            nxt = self._draw(logits[:, : self._vocab].float(), gens, stochastic)
             emits.append(torch.where(active, nxt, -1))
-            rem = rem - active.to(torch.int32)
+            step = active.to(torch.int32)
+            gens = gens + step
+            rem = rem - step
             hit_eos = active & (self._eos >= 0) & (nxt == self._eos)
             active = active & ~hit_eos & (rem > 0)
             tok = torch.where(active, nxt, tok[:, 0])[:, None]
-        self._tok, self._active, self._rem = tok, active, rem
+        self._tok, self._active, self._rem, self._gens = tok, active, rem, gens
         return torch.stack(emits)
 
     def _decode_and_harvest(self, finished: list[Request]) -> None:
         if not self._active_host.any():
             return
+        if self.spec is not None:
+            self._spec_decode_and_harvest(finished)
+            return
         t0 = time.perf_counter()
-        emits = self._run_chunk().cpu().numpy()   # (chunk, slots) — one sync
+        emits = self._run_chunk(self._stochastic()[0]).cpu().numpy()  # one sync
         active_np = self._active.cpu().numpy()
         t1 = time.perf_counter()
         self.stats.decode_seconds += t1 - t0
@@ -289,12 +417,110 @@ class Scheduler:
             # slot_len = actual cache rows: prompt rows + one row per
             # decode-emitted token (the newest token's row lands on the
             # step that feeds it back)
-            self.kv.slot_len[slot] += len(new)
-            cap = self.kv.slot_capacity(slot)
-            if self.kv.slot_len[slot] > cap:
-                raise RuntimeError(
-                    f"slot {slot}: {self.kv.slot_len[slot]} cache rows exceed "
-                    f"the {cap}-row reservation")
+            self._grow(slot, len(new))
+            if not active_np[slot]:
+                self._finish(req, finished)
+                self._release_slot(slot)
+
+    def _grow(self, slot: int, n: int) -> None:
+        """Count `n` committed cache rows for `slot`, within its reservation."""
+        self.kv.slot_len[slot] += n
+        cap = self.kv.slot_capacity(slot)
+        if self.kv.slot_len[slot] > cap:
+            raise RuntimeError(f"slot {slot}: {self.kv.slot_len[slot]} cache rows exceed "
+                               f"the {cap}-row reservation")
+
+    # -- speculative decoding -----------------------------------------------
+
+    def _propose(self) -> torch.Tensor:
+        """The n-gram drafter's (slots, k) proposals from each slot's history."""
+        return spec_mod.ngram_propose(self._hist, self._hlen, self._tok, self.spec.k,
+                                      n=self.drafter.n)
+
+    @torch.no_grad()
+    def _verify(self, drafts: torch.Tensor, stochastic: bool, any_reject: bool):
+        """One verify forward over [pending token, drafts] for every slot,
+        then acceptance and the history append; the per-slot state moves on
+        by the emitted tokens.  The cache keeps all k + 1 rows until the
+        caller's rollback.  Returns (pos0, emits, cnt, judged, undo)."""
+        pos0 = zoo.cache_position(self.cfg, self.kv.cache)
+        tokens = torch.cat([self._tok, drafts], dim=1)
+        logits, undo = zoo.verify_step(self.params, self.cfg, tokens, self.kv.cache)
+        (emits, cnt, judged, self._tok, self._active, self._rem,
+         self._gens) = spec_mod.acceptance(
+            logits[..., : self._vocab].float(), drafts, self._tok, base_key=self._key,
+            seeds=self._seeds, gens=self._gens, temp=self._temp, topk=self._topk,
+            topp=self._topp, eos=self._eos, rem=self._rem, active=self._active,
+            k_eff=self._keff, match=self._match, stochastic=stochastic,
+            any_reject=any_reject)
+        self._hist, self._hlen = spec_mod.append_history(self._hist, self._hlen, emits, cnt)
+        return pos0, emits, cnt, judged, undo
+
+    def _spec_cycles_run(self, stochastic: bool, any_reject: bool):
+        """Every cycle of a step: draft, verify, accept, rollback.  Fused:
+        the rollback is `zoo.cache_rollback` inside each cycle, nothing
+        leaves the device until the caller's one sync.  Unfused: the same
+        cycle as separate calls, the rollback through
+        `SlotKVCache.rollback`, the drafts' host time kept apart.  Returns
+        the stacked (cycles, slots, k+1) emits, (cycles, slots) counts and
+        judged drafts."""
+        s_width = self.spec.k + 1
+        out = []
+        for _ in range(self._spec_cycles):
+            td0 = time.perf_counter()
+            drafts = self._propose()
+            if not self.spec.fused:
+                self.stats.spec_draft_seconds += time.perf_counter() - td0
+            pos0, emits, cnt, judged, undo = self._verify(drafts, stochastic, any_reject)
+            if self.spec.fused:
+                zoo.cache_rollback(self.cfg, self.kv.cache, undo, pos0, cnt, s_width)
+            else:
+                self.kv.rollback(pos0, cnt, s_width, undo=undo)
+            out.append((emits, cnt, judged))
+        if self.spec.fused:
+            self.kv.note_scan_rollbacks(self._spec_cycles)
+        return tuple(torch.stack(x) for x in zip(*out))
+
+    def _spec_decode_and_harvest(self, finished: list[Request]) -> None:
+        """Draft/verify decode: each cycle proposes k drafts per slot,
+        verifies them with one forward, keeps the accepted prefix and
+        sweeps the rejected rows — up to k+1 tokens per slot per packed
+        weight read.  One host sync per scheduler step."""
+        cycles = self._spec_cycles
+        t0 = time.perf_counter()
+        emits, cnts, judged = self._spec_cycles_run(*self._stochastic())
+        emits_np = emits.cpu().numpy()     # (cycles, slots, k+1) — one sync
+        cnts_np = cnts.cpu().numpy()       # (cycles, slots)
+        judged_np = judged.cpu().numpy()
+        active_np = self._active.cpu().numpy()
+        t1 = time.perf_counter()
+        st = self.stats
+        st.decode_seconds += t1 - t0
+        st.decode_steps += cycles
+        st.verify_steps += cycles
+        st.step_time_hist.observe((t1 - t0) / cycles, n=cycles)
+        for slot, req in list(self._running.items()):
+            cnt = cnts_np[:, slot]
+            rode = int((cnt > 0).sum())
+            col = emits_np[:, slot, :].reshape(-1)
+            new = col[col >= 0].tolist()
+            # drafts whose verdict reached the stream (accepted ones, and an
+            # emitted correction's rejected one); drafts past an EOS or
+            # budget cut were never judgeable
+            proposed = int(judged_np[:, slot].sum())
+            accepted = int(np.maximum(cnt - 1, 0).sum())
+            req.tokens.extend(new)
+            req.spec_verify_steps += rode
+            req.spec_proposed += proposed
+            req.spec_accepted += accepted
+            st.lane_verify_steps += rode
+            st.draft_proposed += proposed
+            st.draft_accepted += accepted
+            st.tokens_generated += len(new)
+            st.decode_tokens += len(new)
+            # one committed cache row per emitted token, as in the chunk
+            # loop (the rollback already swept the rejected rows)
+            self._grow(slot, len(new))
             if not active_np[slot]:
                 self._finish(req, finished)
                 self._release_slot(slot)

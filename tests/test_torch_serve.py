@@ -5,7 +5,9 @@ Reduced qwen2-0.5b in f32, packed by the reference's `zoo.pack_params`
 and carried across by `params_from_numpy`.  Greedy token streams must be
 identical to the reference's synchronous scheduler (prefix sharing and
 async admission off), under both admission policies and through
-`ServeEngine`; the paged pool conserves its pages at every step.
+`ServeEngine`; the paged pool conserves its pages at every step.  Sampled
+requests and speculative decoding have their own files
+(`test_torch_sample.py`, `test_torch_spec.py`).
 """
 import jax
 import numpy as np
@@ -117,12 +119,20 @@ def test_stripe_pool_streams_identical(setup, reference_streams):
 
 
 def test_sampled_requests_and_missing_gpu_raise(setup):
+    """Sampled requests are served now; what still raises: an unknown
+    acceptance rule, the model drafter (not ported, named in ROADMAP.md),
+    and a CUDA entry point without a card."""
     _, cfg, _, model, prompts = setup
     sched = serve.Scheduler(cfg, model, device="cpu", **SCHED)
-    req = serve.Request(rid=0, prompt=prompts[0],
-                        params=serve.SamplingParams(temperature=0.7))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        sched.submit(req)
+    sched.submit(serve.Request(rid=0, prompt=prompts[0],
+                               params=serve.SamplingParams(temperature=0.7, top_k=4)))
+    assert sched.n_pending == 1
+    with pytest.raises(ValueError, match="spec_accept"):
+        sched.submit(serve.Request(rid=1, prompt=prompts[0],
+                                   params=serve.SamplingParams(spec_accept="maybe")))
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 8"):
+        serve.Scheduler(cfg, model, device="cpu", spec=serve.SpecConfig(drafter="model"),
+                        **SCHED)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve.Scheduler(cfg, model, **SCHED)
