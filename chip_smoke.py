@@ -26,9 +26,18 @@ Phases (each prints its own lines; any failure exits non-zero):
                against its constraints, and hinm_spmm held on gyro-pruned
                projections (permuted vec_idx).
   5. serve   — the gyro-pruned, packed model served by `Scheduler` over the
-               paged KV pool: 8 greedy requests, launch counts asserted;
-               then, on a live 4-slot pool, the speculative verify held
-               against four decode steps (max |dlogit|, bit-equal) and the
+               paged KV pool, whose decode chunk, spec cycles and prefills
+               run as captured CUDA graphs under double-buffered admission:
+               each served workload runs once to capture its graphs, once
+               replaying them (launch counts, counted through replays,
+               asserted) and once as its eager twin (`graphs._eager()`);
+               graphed and eager streams must be equal or part only at a
+               near tie, and each path prints before (eager) and after
+               (graphs): decode tok/s, p50 step, p50 TTFT, the device idle
+               share, captures and replays.  First 8 greedy requests; then,
+               on a live 4-slot pool, the speculative verify held against
+               four decode steps, eagerly and as captured graphs (bit-equal;
+               a captured decode step against the eager one), and the
                profiles (host vs device time, the kernels' share) of a
                greedy decode step, a sampled one and a speculative cycle,
                greedy and sampled; then examples/serve_hinm.py's own mix
@@ -42,6 +51,7 @@ Phases (each prints its own lines; any failure exits non-zero):
 The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import copy
 import json
 import os
@@ -553,6 +563,26 @@ def k1_verify_layer(gen, ps, dense, b=16):
     return out
 
 
+def k1_prefill_layer(k1, launches):
+    """K1 at prefill, from the kernels phase's B 512 cases (bf16, V 32, the
+    "mma" variant its dispatch picks): one layer's seven projections, so
+    the sum over PROJ of each shape's case times its count per layer —
+    kernel, plain version, `torch.matmul` and bound — beside the launches
+    one admission prefill made in the served run."""
+    cases = {c["case"]: c for c in k1 if c["B"] == 512 and c["dtype"] == "bfloat16"
+             and c["V"] == 32 and c["case"] in PROJ}
+    line = {key: sum(cases[label][key] * reps for label, (_, _, reps) in PROJ.items())
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    line.update(B=512, variant=sorted({c["variant"] for c in cases.values()}),
+                bound_by=sorted({c["bound_by"] for c in cases.values()}),
+                launches_per_admission=launches)
+    print(f"K1 one prefill layer (7 projections, B=512, bf16, V=32, {line['variant']}, "
+          f"summed from the per-projection cases): kernel {line['ms']*1e3:8.1f} us  plain "
+          f"{line['plain_ms']*1e3:8.1f} us  matmul {line['library_ms']*1e3:8.1f} us  bound "
+          f"{line['bound_ms']*1e3:7.1f} us; {launches:.0f} launches per admission prefill")
+    return line
+
+
 # the Random123 known-answer vector of threefry2x32 (key, counter, output)
 THREEFRY_KAT = ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0))
 
@@ -714,18 +744,14 @@ def prune_phase(cfg, model, gen):
 PROFILE_LENS = (40, 64, 80, 96)
 
 
-def graph_of(fn) -> torch.cuda.CUDAGraph:
-    """`fn` captured once as a CUDA graph (warmed up on a side stream)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return graph
+def graphed(fn):
+    """`fn` through the package's graph cache (`repro_torch.serve.graphs`):
+    the first call runs it eagerly and captures it, every later call
+    replays the graph."""
+    from repro_torch.serve import graphs
+
+    cache = graphs.GraphCache(torch.device("cuda"))
+    return lambda: cache.run(None, fn)
 
 
 # draft tokens per verify in the spec runs and profiles: the main flow's
@@ -773,30 +799,66 @@ def spec_bits(cfg, model, cache, tok):
     tokens decode chose].  Row i of the verify must be decode step i: the
     max |dlogit| over the 4 x 4 x vocab logits, whether they are bit-equal,
     and the smallest top-2 margin of the decode logits (bf16 logits tie
-    often)."""
+    often).  Both run eagerly, then again as captured CUDA graphs (the
+    scheduler's programs): the captured verify must be bitwise the
+    captured decode steps, and a captured decode step is held against the
+    eager one (max |dlogit|: what the graphed-vs-eager gate allows a
+    stream to part by)."""
     from repro_torch.models import zoo
     from repro_torch.serve import sampler
 
     pos0 = zoo.cache_position(cfg, cache)
-    seq, dec = [tok], []
-    for _ in range(SPEC_K + 1):
-        logits = zoo.decode_step(model, cfg, seq[-1], cache)
-        dec.append(logits)
-        seq.append(sampler.greedy(logits[:, : cfg.vocab].float())[:, None])
-    dec = torch.stack(dec, dim=1)[..., : cfg.vocab]
-    rewind(cfg, cache, pos0)
-    ver = zoo.verify_step(model, cfg, torch.cat(seq[: SPEC_K + 1], dim=1), cache)[0]
-    ver = ver[..., : cfg.vocab]
-    rewind(cfg, cache, pos0)
-    top2 = torch.topk(dec.float(), 2, dim=-1).values
-    out = dict(max_abs_dlogit=float((ver.float() - dec.float()).abs().max()),
-               bit_equal=bool(torch.equal(ver, dec)),
+    b, n = tok.shape[0], SPEC_K + 1
+    seq = torch.zeros((b, n + 1), dtype=torch.int32, device="cuda")
+    seq[:, :1] = tok
+    dec = torch.zeros((b, n, cfg.vocab_padded), dtype=cfg.dtype, device="cuda")
+    ver = torch.zeros_like(dec)
+
+    def decode():
+        for i in range(n):
+            logits = zoo.decode_step(model, cfg, seq[:, i: i + 1], cache)
+            dec[:, i].copy_(logits)
+            seq[:, i + 1].copy_(sampler.greedy(logits[:, : cfg.vocab].float()))
+
+    def verify():
+        ver.copy_(zoo.verify_step(model, cfg, seq[:, :n], cache)[0])
+
+    runs = {}
+    for mode in ("eager", "graphed"):
+        got = []
+        for fn in (decode, verify):
+            run = fn if mode == "eager" else graphed(fn)
+            if mode == "graphed":
+                run()                     # eager first use, then captured
+                rewind(cfg, cache, pos0)
+            run()
+            got.append((dec if fn is decode else ver)[..., : cfg.vocab].clone())
+            rewind(cfg, cache, pos0)
+        runs[mode] = got + [seq.clone()]
+    (dec_e, ver_e, seq_e), (dec_g, ver_g, seq_g) = runs["eager"], runs["graphed"]
+    top2 = torch.topk(dec_e.float(), 2, dim=-1).values
+    # the steps whose inputs agree (all four where every argmax agrees)
+    same = n if torch.equal(seq_e, seq_g) else 1
+    out = dict(max_abs_dlogit=float((ver_e.float() - dec_e.float()).abs().max()),
+               bit_equal=bool(torch.equal(ver_e, dec_e)),
+               graph_bit_equal=bool(torch.equal(ver_g, dec_g)),
+               graph_max_abs_dlogit=float((ver_g.float() - dec_g.float()).abs().max()),
+               graph_vs_eager_max_abs_dlogit=float(
+                   (dec_g[:, :same].float() - dec_e[:, :same].float()).abs().max()),
+               graph_vs_eager_bit_equal=bool(torch.equal(dec_g[:, :same], dec_e[:, :same])),
+               graph_vs_eager_steps=same,
                min_top2_margin=float((top2[..., 0] - top2[..., 1]).min()),
-               positions=int(dec.shape[0] * dec.shape[1]))
-    print(f"spec bits: verify_step over [pending + {SPEC_K} drafts] vs {SPEC_K + 1} decode "
+               positions=int(dec_e.shape[0] * dec_e.shape[1]))
+    print(f"spec bits: verify_step over [pending + {SPEC_K} drafts] vs {n} decode "
           f"steps on the live pool: bit-equal {out['bit_equal']}, max |dlogit| "
           f"{out['max_abs_dlogit']:.3e} over {out['positions']} positions x {cfg.vocab} "
-          f"(smallest decode top-2 margin {out['min_top2_margin']:.3e})", flush=True)
+          f"(smallest decode top-2 margin {out['min_top2_margin']:.3e}); as captured "
+          f"graphs: bit-equal {out['graph_bit_equal']}, max |dlogit| "
+          f"{out['graph_max_abs_dlogit']:.3e}; captured vs eager decode ({same} step(s)): "
+          f"bit-equal {out['graph_vs_eager_bit_equal']}, max |dlogit| "
+          f"{out['graph_vs_eager_max_abs_dlogit']:.3e}", flush=True)
+    if not out["graph_bit_equal"]:
+        raise AssertionError("the captured verify is not bitwise the captured decode steps")
     return out
 
 
@@ -815,7 +877,7 @@ def host_and_device(fn, chunk=8):
         torch.cuda.synchronize()
         hosts.append((t1 - t0) / chunk * 1e3)
         walls.append((time.perf_counter() - t0) / chunk * 1e3)
-    return float(np.mean(walls)), float(np.mean(hosts)), time_ms(graph_of(fn).replay)
+    return float(np.mean(walls)), float(np.mean(hosts)), time_ms(graphed(fn))
 
 
 @torch.no_grad()
@@ -929,11 +991,11 @@ def step_profile(cfg, model, kv):
         return run, q, qpos
 
     verify_variant = hs.variant(b, blk0.mlp.wd.w, cfg.dtype)
-    out["k1_ms"] = time_ms(graph_of(k1_launches(b)).replay)
-    out["verify_k1_ms"] = time_ms(graph_of(k1_launches(b * (SPEC_K + 1), verify_variant)).replay)
+    out["k1_ms"] = time_ms(graphed(k1_launches(b)))
+    out["verify_k1_ms"] = time_ms(graphed(k1_launches(b * (SPEC_K + 1), verify_variant)))
     k2_run, q, qpos = k2_launches(1)
-    out["k2_ms"] = time_ms(graph_of(k2_run).replay)
-    out["verify_k2_ms"] = time_ms(graph_of(k2_launches(SPEC_K + 1)[0]).replay)
+    out["k2_ms"] = time_ms(graphed(k2_run))
+    out["verify_k2_ms"] = time_ms(graphed(k2_launches(SPEC_K + 1)[0]))
     out["verify_k1_variant"] = verify_variant
 
     def host_us(fn, n=200):
@@ -957,8 +1019,6 @@ def step_profile(cfg, model, kv):
 
 
 def serve_phase(cfg, model):
-    from repro_torch.kernels import hinm_spmm as hs
-    from repro_torch.kernels import paged_attn as pa
     from repro_torch.serve import Request, SamplingParams, Scheduler
 
     t0 = time.perf_counter()
@@ -966,7 +1026,7 @@ def serve_phase(cfg, model):
     sched = Scheduler(cfg, model, max_slots=4, max_seq=256, page=16, decode_chunk=8)
     torch.cuda.synchronize()
     print(f"Scheduler built in {time.perf_counter() - t0:.1f} s on the gyro-pruned, "
-          f"packed model")
+          f"packed model (async admission {sched.async_admission})")
     pb, db = sched.stats.packed_param_bytes, sched.stats.dense_param_bytes
     print(f"weights: {pb / 1e6:.1f} MB packed vs {db / 1e6:.1f} MB dense-equivalent; "
           f"KV pool {sched.kv.pool_bytes() / 1e6:.1f} MB ({sched.kv.n_pages} pages)")
@@ -974,44 +1034,37 @@ def serve_phase(cfg, model):
     # warm-up request (CUDA context, cuBLAS handle, kernel module loads)
     sched.run([Request(rid=99, prompt=rng.integers(0, cfg.vocab, 16).astype(np.int32),
                        params=SamplingParams(max_new_tokens=4))])
-    sched.reset()
     lens = [16, 24, 40, 64, 96, 128, 33, 80]
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
-                    params=SamplingParams(max_new_tokens=32), arrival=i)
-            for i, n in enumerate(lens)]
-    torch.cuda.synchronize()
-    hs.hinm_spmm.launches = 0
-    pa.paged_decode_attn.launches = 0
-    t0 = time.perf_counter()
-    sched.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k1_n, k2_n = hs.hinm_spmm.launches, pa.paged_decode_attn.launches
-    st = sched.stats
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+
+    def requests():
+        return [Request(rid=i, prompt=p, params=SamplingParams(max_new_tokens=32), arrival=i)
+                for i, p in enumerate(prompts)]
+
+    runs = serve_run("greedy", sched, requests)
+    reqs, line = runs["graphed"]
     for r in reqs:
         print(f"req {r.rid}: prompt {len(r.prompt):4d} -> {r.n_generated:3d} tokens "
               f"({r.finish_reason})  TTFT {r.ttft * 1e3:8.1f} ms  "
               f"{r.tokens_per_second:7.1f} tok/s")
-        if not (r.n_generated == 32 or (r.finish_reason == "eos" and r.tokens[-1] == EOS)):
-            raise AssertionError(f"request {r.rid}: {r.n_generated} tokens, "
-                                 f"finish {r.finish_reason}")
-    steps = st.decode_steps
-    print(f"served {len(reqs)} requests in {wall:.2f} s: {st.decode_tokens} decode "
-          f"tokens over {steps} decode steps, {st.decode_tokens_per_second:.1f} decode "
-          f"tok/s, p50 step {st.step_time_percentile(50) * 1e3:.2f} ms, p50 TTFT "
-          f"{st.ttft_percentile(50) * 1e3:.1f} ms, packed-weight bytes per decode "
-          f"token {st.weight_bytes_per_token / 1e6:.1f} MB")
-    print(f"launches: hinm_spmm {k1_n} ({k1_n / max(steps, 1):.1f}/decode step), "
-          f"paged_decode_attn {k2_n} ({k2_n / max(steps, 1):.1f}/decode step)")
+    steps, k1_n, k2_n = line["decode_steps"], line["hinm_spmm"], line["paged_decode_attn"]
+    print(f"launches (graphed run, counted through replays): hinm_spmm {k1_n} "
+          f"({k1_n / max(steps, 1):.1f}/decode step), paged_decode_attn {k2_n} "
+          f"({k2_n / max(steps, 1):.1f}/decode step)")
     per_step_k1 = 7 * cfg.n_layers
     if steps == 0 or k1_n < per_step_k1 * steps or k2_n < cfg.n_layers * steps:
         raise AssertionError(f"the main path skipped a kernel: {k1_n} hinm_spmm and "
                              f"{k2_n} paged_decode_attn launches for {steps} steps")
-    served_ms = st.step_time_percentile(50) * 1e3
+    n_groups = len(set(admission_groups(reqs).values()))
+    prefill_k1 = (k1_n - per_step_k1 * steps) / n_groups
+    print(f"hinm_spmm launches per admission prefill: {prefill_k1:.1f} ({n_groups} groups)")
+    if prefill_k1 != per_step_k1:
+        raise AssertionError(f"{prefill_k1} hinm_spmm launches per prefill, expected "
+                             f"{per_step_k1}")
     prof = step_profile(cfg, model, sched.kv)
     dev, w = prof["device_ms"], prof["wall_ms"]
     print(f"step profile, live pool of {len(PROFILE_LENS)} slots (prompts "
-          f"{'/'.join(map(str, PROFILE_LENS))}, decoding): wall {w:.2f} ms per step "
+          f"{'/'.join(map(str, PROFILE_LENS))}, decoding), eager: wall {w:.2f} ms per step "
           f"(host enqueue {prof['host_ms']:.2f} ms); device {dev:.3f} ms (one step "
           f"replayed as a CUDA graph) -> device idle {1 - dev / w:.1%} of the wall step; "
           f"of the device step: hinm_spmm x{per_step_k1} {prof['k1_ms']:.3f} ms "
@@ -1025,7 +1078,7 @@ def serve_phase(cfg, model):
                                   "rollback), greedy"),
                        ("verify_sampled", "spec cycle, every lane match-sampled")):
         q = prof[name]
-        print(f"step profile, {what}: wall {q['wall_ms']:.2f} ms (host enqueue "
+        print(f"step profile, {what}, eager: wall {q['wall_ms']:.2f} ms (host enqueue "
               f"{q['host_ms']:.2f} ms); device {q['device_ms']:.3f} ms (greedy decode step "
               f"{dev:.3f} ms) -> device idle {1 - q['device_ms'] / q['wall_ms']:.1%}")
     vd = prof["verify"]["device_ms"]
@@ -1033,10 +1086,14 @@ def serve_phase(cfg, model):
           f"({prof['verify_k1_variant']}) {prof['verify_k1_ms']:.3f} ms ({prof['verify_k1_ms'] / vd:.1%} "
           f"of the greedy cycle's device time), paged_decode_attn x{cfg.n_layers} at s "
           f"{SPEC_K + 1} {prof['verify_k2_ms']:.3f} ms ({prof['verify_k2_ms'] / vd:.1%})")
-    mixed = mixed_phase(cfg, model, sched, prof["spec_bits"])
+    twins = twins_gate("greedy", cfg, model, sched, prompts, runs, prof["spec_bits"])
+    before_after("greedy", runs)
+    mixed = mixed_phase(cfg, model, sched, prof)
     return {"hinm_spmm": k1_n, "paged_decode_attn": k2_n,
-            "decode_tok_s": st.decode_tokens_per_second, "served_p50_step_ms": served_ms,
-            "profile": prof, "wall_s": wall, "mixed": mixed}
+            "decode_tok_s": line["decode_tok_s"], "served_p50_step_ms": line["p50_step_ms"],
+            "profile": prof, "wall_s": line["wall_s"], "prefill_k1_per_admission": prefill_k1,
+            "runs": {mode: ln for mode, (_, ln) in runs.items()}, "twins": twins,
+            "mixed": mixed}
 
 
 # examples/serve_hinm.py's workload (build_workload at its defaults: 10
@@ -1064,43 +1121,162 @@ def admission_groups(reqs) -> dict:
     return {rid: tuple(g) for g in by_time.values() for rid in g}
 
 
-def serve_run(label, sched, prompts):
-    """Serve the mix once, launch counts set to 0 just before and read just
-    after; checks every request ran to its budget."""
+class DeviceClock:
+    """CUDA events around every replay the scheduler's graph cache makes
+    of a decode program (the chunk, the fused spec loop, the unfused
+    proposal and verify): their summed device time.  A replay is one host
+    call, so its events bracket device work only; the unfused chain's eager
+    rollbacks and the prefills are not counted."""
+
+    def __init__(self, sched):
+        self.pairs = []
+        cache, run = sched.graphs, sched.graphs.run
+
+        def timed(key, body):
+            if key[0] == "prefill":
+                return run(key, body)
+            n = cache.replays
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            run(key, body)
+            end.record()
+            if cache.replays > n:
+                self.pairs.append((start, end))
+        cache.run = timed
+        self._restore = lambda: delattr(cache, "run")
+
+    def stop(self) -> float:
+        """Stop timing; the summed device ms of the replays."""
+        self._restore()
+        torch.cuda.synchronize()
+        return float(sum(s.elapsed_time(e) for s, e in self.pairs))
+
+
+def serve_run(label, sched, make_requests):
+    """Serve `make_requests()` on `sched` three times, reset before each: a
+    warm-up run, whose first use of each program runs it eagerly and
+    captures it; the graphed run, which replays them; and its eager twin
+    under `graphs._eager()`.  Launch counts are set to 0 just before each
+    measured run and read just after.  Checks every request ran to its
+    budget.  The graphed run's decode programs are timed on the device
+    (`DeviceClock`); the eager twin runs the same device work, so both
+    runs' idle share is 1 - that device time per decode step / the run's
+    wall time per decode step.  Returns {"graphed" | "eager": (requests,
+    line)}."""
     from repro_torch.kernels import hinm_spmm as hs
     from repro_torch.kernels import paged_attn as pa
+    from repro_torch.serve import graphs
 
-    reqs = mixed_requests(prompts)
-    torch.cuda.synchronize()
-    hs.hinm_spmm.launches = 0
-    pa.paged_decode_attn.launches = 0
-    t0 = time.perf_counter()
-    sched.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k1_n, k2_n = hs.hinm_spmm.launches, pa.paged_decode_attn.launches
-    st = sched.stats
-    for r in reqs:
-        if not (r.n_generated == r.params.max_new_tokens
-                or (r.finish_reason == "eos" and r.tokens[-1] == EOS)):
-            raise AssertionError(f"{label} request {r.rid}: {r.n_generated} tokens, "
-                                 f"finish {r.finish_reason}")
-    line = dict(wall_s=wall, decode_tok_s=st.decode_tokens_per_second,
-                p50_step_ms=st.step_time_percentile(50) * 1e3,
-                p50_ttft_ms=st.ttft_percentile(50) * 1e3, decode_steps=st.decode_steps,
-                decode_tokens=st.decode_tokens, verify_steps=st.verify_steps,
-                acceptance_rate=st.acceptance_rate,
-                tokens_per_verify_step=st.tokens_per_verify_step,
-                hinm_spmm=k1_n, paged_decode_attn=k2_n,
-                rollback_sweeps=sched.kv.rollback_sweeps)
-    print(f"{label:14s}: {len(reqs)} requests in {wall:.2f} s, {st.decode_tokens} decode "
-          f"tokens, {st.decode_steps} decode steps ({st.verify_steps} verify forwards), "
-          f"{line['decode_tok_s']:.1f} decode tok/s, p50 step {line['p50_step_ms']:.2f} ms, "
-          f"p50 TTFT {line['p50_ttft_ms']:.1f} ms; "
-          + (f"acceptance {st.acceptance_rate:.3f} ({st.draft_accepted}/{st.draft_proposed}), "
-             f"{st.tokens_per_verify_step:.3f} tokens per verify; " if st.verify_steps else "")
-          + f"launches hinm_spmm {k1_n}, paged_decode_attn {k2_n}", flush=True)
-    return reqs, line
+    g = sched.graphs
+    sched.reset()
+    sched.run(make_requests())
+    warm = g.captures
+    runs = {}
+    device_ms = None    # the graphed run's; its eager twin does the same device work
+    for mode in ("graphed", "eager"):
+        sched.reset()
+        reqs = make_requests()
+        c0, r0, o0 = g.captures, g.replays, sched._overlap_groups
+        torch.cuda.synchronize()
+        hs.hinm_spmm.launches = 0
+        pa.paged_decode_attn.launches = 0
+        clock = DeviceClock(sched) if mode == "graphed" else None
+        t0 = time.perf_counter()
+        with graphs._eager() if mode == "eager" else contextlib.nullcontext():
+            sched.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if mode == "graphed":
+            device_ms = clock.stop()
+        k1_n, k2_n = hs.hinm_spmm.launches, pa.paged_decode_attn.launches
+        st = sched.stats
+        for r in reqs:
+            if not (r.n_generated == r.params.max_new_tokens
+                    or (r.finish_reason == "eos" and r.tokens[-1] == EOS)):
+                raise AssertionError(f"{label} ({mode}) request {r.rid}: {r.n_generated} "
+                                     f"tokens, finish {r.finish_reason}")
+        line = dict(wall_s=wall, decode_tok_s=st.decode_tokens_per_second,
+                    p50_step_ms=st.step_time_percentile(50) * 1e3,
+                    p50_ttft_ms=st.ttft_percentile(50) * 1e3, decode_steps=st.decode_steps,
+                    decode_tokens=st.decode_tokens, verify_steps=st.verify_steps,
+                    acceptance_rate=st.acceptance_rate,
+                    tokens_per_verify_step=st.tokens_per_verify_step,
+                    hinm_spmm=k1_n, paged_decode_attn=k2_n,
+                    rollback_sweeps=sched.kv.rollback_sweeps,
+                    overlapped_groups=sched._overlap_groups - o0,
+                    graphs_captured_warmup=warm, graphs_captured=g.captures - c0,
+                    graph_replays=g.replays - r0,
+                    mean_step_ms=st.decode_seconds / st.decode_steps * 1e3,
+                    device_step_ms=device_ms / st.decode_steps)
+        line["idle_share"] = 1 - line["device_step_ms"] / line["mean_step_ms"]
+        print(f"{label:19s} {mode:7s}: {len(reqs)} requests in {wall:.2f} s, "
+              f"{st.decode_tokens} decode tokens, {st.decode_steps} decode steps "
+              f"({st.verify_steps} verify forwards), {line['decode_tok_s']:.1f} decode tok/s, "
+              f"p50 step {line['p50_step_ms']:.2f} ms, p50 TTFT {line['p50_ttft_ms']:.1f} ms; "
+              + (f"acceptance {st.acceptance_rate:.3f} ({st.draft_accepted}/"
+                 f"{st.draft_proposed}), {st.tokens_per_verify_step:.3f} tokens per verify; "
+                 if st.verify_steps else "")
+              + f"launches hinm_spmm {k1_n}, paged_decode_attn {k2_n}; overlapped admission "
+              f"groups {line['overlapped_groups']}; graphs captured {line['graphs_captured']} "
+              f"(warm-up run {warm}), replays {line['graph_replays']}; mean step "
+              f"{line['mean_step_ms']:.2f} ms against {line['device_step_ms']:.3f} ms of "
+              f"device time (the graphed run's replays): idle {line['idle_share']:.1%}",
+              flush=True)
+        runs[mode] = (reqs, line)
+    if runs["graphed"][1]["graph_replays"] == 0 or warm == 0:
+        raise AssertionError(f"{label}: the graphed run replayed no graph")
+    return runs
+
+
+def before_after(label, runs):
+    """The path's eager twin (before) beside its graphed run (after):
+    decode tok/s, p50 step, p50 TTFT, the device idle share (`serve_run`),
+    graphs captured and replays."""
+    parts = []
+    for mode, tag in (("eager", "before"), ("graphed", "after")):
+        ln = runs[mode][1]
+        parts.append(f"{tag} ({mode}) {ln['decode_tok_s']:.1f} tok/s, p50 step "
+                     f"{ln['p50_step_ms']:.2f} ms, p50 TTFT {ln['p50_ttft_ms']:.1f} ms, idle "
+                     f"{ln['idle_share']:.1%}")
+    g = runs["graphed"][1]
+    print(f"before/after {label}: " + "; ".join(parts) + f"; device {g['device_step_ms']:.3f} "
+          f"ms per decode step; graphs captured {g['graphs_captured_warmup']} (in the "
+          f"warm-up run), replays {g['graph_replays']}", flush=True)
+
+
+def twins_gate(label, cfg, model, sched, prompts, runs, bits):
+    """Graphed streams against their eager twin's, request by request:
+    equal, or parted only at a near tie — the eager run's draw at the
+    parting point (`parting_margin`: its admission group re-prefilled and
+    decoded eagerly) must be what the eager run drew, with a top-2 margin
+    within the captured decode step's max |dlogit| against the eager one
+    (`spec_bits`; a parting with none is a fault)."""
+    e_reqs, g_reqs = runs["eager"][0], runs["graphed"][0]
+    delta = bits["graph_vs_eager_max_abs_dlogit"]
+    groups = admission_groups(e_reqs)
+    partings = []
+    for a, b in zip(e_reqs, g_reqs):
+        if a.tokens == b.tokens:
+            continue
+        j = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y),
+                 min(len(a.tokens), len(b.tokens)))
+        margin, drawn = parting_margin(cfg, model, sched, prompts, a, groups[a.rid], j)
+        partings.append(dict(rid=a.rid, index=j, margin=margin,
+                             replay_matches=drawn == a.tokens[j],
+                             near_tie=drawn == a.tokens[j] and margin <= delta and delta > 0))
+    same = sum(a.tokens == b.tokens for a, b in zip(e_reqs, g_reqs))
+    print(f"{label}: graphed streams equal to the eager twin's {same}/{len(e_reqs)}; "
+          f"captured vs eager decode step max |dlogit| {delta:.3e}; {len(partings)} "
+          f"parting point(s)" + "".join(
+              f"\n  request {p['rid']} at token {p['index']}: eager top-2 margin "
+              f"{p['margin']:.3e}, replay draws the eager token {p['replay_matches']}, near "
+              f"tie {p['near_tie']}" for p in partings), flush=True)
+    bad = [p for p in partings if not p["near_tie"]]
+    if bad:
+        raise AssertionError(f"{label}: graphed streams part from the eager ones beyond the "
+                             f"near-tie rule: {bad}")
+    return {"identical": same, "requests": len(e_reqs), "threshold": delta,
+            "partings": partings}
 
 
 @torch.no_grad()
@@ -1186,11 +1362,12 @@ def parting_margin(cfg, model, sched, prompts, req, group, j):
     return float(top2.values[0] - top2.values[1]), int(top2.indices[0])
 
 
-def mixed_phase(cfg, model, sched, bits):
-    """The main flow's own workload, served three times on the gyro-pruned
-    packed model: without speculation (`sched`, reset), then with
+def mixed_phase(cfg, model, sched, prof):
+    """The main flow's own workload on the gyro-pruned packed model, each
+    path served from graphs and as an eager twin (`serve_run`, held by
+    `twins_gate`): without speculation (`sched`, reset), then with
     SpecConfig(k=3) fused and unfused.  Launches of both kernels are
-    asserted per verify forward.  The three runs' streams must be
+    asserted per verify forward.  The three graphed runs' streams must be
     identical.  Where one parts, the request's admission group must differ
     between the runs (else a fault), and the parting draw must be a near
     tie: its top-2 margin in the plain run (`parting_margin`, exact) within
@@ -1198,15 +1375,16 @@ def mixed_phase(cfg, model, sched, bits):
     decode, `spec_bits`; prefill widths, `prefill_width_noise`)."""
     from repro_torch.serve import Scheduler, SpecConfig
 
+    bits = prof["spec_bits"]
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, MIXED_PROMPT).astype(np.int32)
                for _ in range(MIXED_REQUESTS)]
     geom = dict(max_slots=4, max_seq=256, page=16, decode_chunk=8)
-    sched.reset()
-    runs = {"plain": serve_run("mixed plain", sched, prompts)}
+    runs = {"plain": serve_run("mixed plain", sched, lambda: mixed_requests(prompts))}
     for label, fused in (("spec fused", True), ("spec unfused", False)):
         spec_sched = Scheduler(cfg, model, spec=SpecConfig(k=SPEC_K, fused=fused), **geom)
-        reqs, line = serve_run(f"mixed {label}", spec_sched, prompts)
+        runs[label] = serve_run(f"mixed {label}", spec_sched, lambda: mixed_requests(prompts))
+        line = runs[label]["graphed"][1]
         per_k1, per_k2 = 7 * cfg.n_layers, cfg.n_layers
         v = line["verify_steps"]
         if (v == 0 or line["hinm_spmm"] < per_k1 * v or line["paged_decode_attn"] < per_k2 * v
@@ -1214,13 +1392,17 @@ def mixed_phase(cfg, model, sched, bits):
             raise AssertionError(f"{label}: {line['hinm_spmm']} hinm_spmm and "
                                  f"{line['paged_decode_attn']} paged_decode_attn launches, "
                                  f"{line['rollback_sweeps']} rollbacks for {v} verify forwards")
-        runs[label] = (reqs, line)
-    plain, groups0 = runs["plain"][0], admission_groups(runs["plain"][0])
+    twins = {label: twins_gate(f"mixed {label}", cfg, model, sched, prompts, r, bits)
+             for label, r in runs.items()}
+    for label, r in runs.items():
+        before_after(f"mixed {label}", r)
+    plain = runs["plain"]["graphed"][0]
+    groups0 = admission_groups(plain)
     noise = prefill_width_noise(cfg, model, sched, prompts)
     delta = max(bits["max_abs_dlogit"], noise)
     partings = []
     for label in ("spec fused", "spec unfused"):
-        reqs = runs[label][0]
+        reqs = runs[label]["graphed"][0]
         groups = admission_groups(reqs)
         for a, b in zip(plain, reqs):
             if a.tokens == b.tokens:
@@ -1232,12 +1414,13 @@ def mixed_phase(cfg, model, sched, bits):
             partings.append(dict(run=label, rid=a.rid, index=j, margin=margin,
                                  group_plain=groups0[a.rid], group_spec=groups[a.rid],
                                  replay_matches=drawn == a.tokens[j], near_tie=ok))
-    same = {label: sum(a.tokens == b.tokens for a, b in zip(plain, runs[label][0]))
+    same = {label: sum(a.tokens == b.tokens
+                       for a, b in zip(plain, runs[label]["graphed"][0]))
             for label in ("spec fused", "spec unfused")}
-    print(f"streams equal to the plain run's: fused {same['spec fused']}/{len(plain)}, "
-          f"unfused {same['spec unfused']}/{len(plain)} requests; near-tie threshold {delta:.3e} (verify vs decode "
-          f"{bits['max_abs_dlogit']:.3e}, prefill width {noise:.3e}); {len(partings)} "
-          f"parting point(s)" + "".join(
+    print(f"graphed streams equal to the plain run's: fused {same['spec fused']}/{len(plain)}, "
+          f"unfused {same['spec unfused']}/{len(plain)} requests; near-tie threshold "
+          f"{delta:.3e} (verify vs decode {bits['max_abs_dlogit']:.3e}, prefill width "
+          f"{noise:.3e}); {len(partings)} parting point(s)" + "".join(
               f"\n  {p['run']} request {p['rid']} at token {p['index']}: plain-run top-2 "
               f"margin {p['margin']:.3e}, group {p['group_plain']} -> {p['group_spec']}, "
               f"replay draws the plain token {p['replay_matches']}, near tie {p['near_tie']}"
@@ -1246,8 +1429,9 @@ def mixed_phase(cfg, model, sched, bits):
     if bad:
         raise AssertionError(f"speculative streams part from the plain ones beyond the "
                              f"near-tie rule: {bad}")
-    return {"runs": {k: v[1] for k, v in runs.items()}, "identical": same,
-            "near_tie_threshold": delta, "prefill_width_noise": noise, "partings": partings}
+    return {"runs": {k: {mode: ln for mode, (_, ln) in v.items()} for k, v in runs.items()},
+            "identical": same, "near_tie_threshold": delta, "prefill_width_noise": noise,
+            "partings": partings, "twins": twins}
 
 
 @torch.no_grad()
@@ -1348,7 +1532,7 @@ def main() -> int:
     k2_rep = next(c for c in k2 if c["case"] == "s=1 window=0" and c["dtype"] == "bfloat16")
     k2_verify = next(c for c in k2 if c["case"] == "verify s=4" and c["dtype"] == "bfloat16")
     mixed = served["mixed"]["runs"]
-    paths = {"greedy": served} | {f"mixed {k}": v for k, v in mixed.items()}
+    paths = {"greedy": served} | {f"mixed {k}": v["graphed"] for k, v in mixed.items()}
     by_path = {name: {p: paths[p][name] for p in paths}
                for name in ("hinm_spmm", "paged_decode_attn")}
     for name, counts in by_path.items():
@@ -1361,6 +1545,7 @@ def main() -> int:
                    "down), B=4, bf16, V=32 (variant rows)",
              crossover={"rows_max_b": K1_CROSSOVER, "layer_ms_by_B": crossover},
              launches_by_path=by_path["hinm_spmm"],
+             prefill=k1_prefill_layer(k1, served["prefill_k1_per_admission"]),
              **{**layer,
                 "max_abs_err": max([layer["max_abs_err"]] + [c["max_abs_err"] for c in k1]),
                 "max_rel_err": max([layer["max_rel_err"]] + [c["max_rel_err"] for c in k1])},
@@ -1393,15 +1578,22 @@ def main() -> int:
     print(f"prune: gyro {g['wall_s']:.1f} s (search {g['report'].phase_seconds['search']:.1f}"
           f" s), mean retained {g['report'].mean_retained:.6f} vs noperm "
           f"{n['report'].mean_retained:.6f}")
-    print(f"serve: {served['decode_tok_s']:.1f} decode tok/s, p50 decode step "
-          f"{served['served_p50_step_ms']:.2f} ms; live-pool step: wall "
-          f"{prof['wall_ms']:.2f} ms, host enqueue {prof['host_ms']:.2f} ms, device "
-          f"{prof['device_ms']:.3f} ms")
-    for label, r in mixed.items():
-        print(f"main flow's mix, {label}: {r['decode_tok_s']:.1f} decode tok/s, p50 step "
-              f"{r['p50_step_ms']:.2f} ms" + (
-                  f", acceptance {r['acceptance_rate']:.3f}, {r['tokens_per_verify_step']:.3f} "
-                  f"tokens per verify" if r["verify_steps"] else ""))
+    for label, r in [("greedy (8 requests)", served["runs"])] + [
+            (f"main flow's mix, {k}", v) for k, v in mixed.items()]:
+        print(f"serve {label}: " + "; ".join(
+            f"{mode} {r[mode]['decode_tok_s']:.1f} decode tok/s, p50 step "
+            f"{r[mode]['p50_step_ms']:.2f} ms, p50 TTFT {r[mode]['p50_ttft_ms']:.1f} ms, idle "
+            f"{r[mode]['idle_share']:.1%}" for mode in ("eager", "graphed")) + (
+                f"; acceptance {r['graphed']['acceptance_rate']:.3f}, "
+                f"{r['graphed']['tokens_per_verify_step']:.3f} tokens per verify"
+                if r["graphed"]["verify_steps"] else ""))
+    print(f"live-pool step (eager): wall {prof['wall_ms']:.2f} ms, host enqueue "
+          f"{prof['host_ms']:.2f} ms, device {prof['device_ms']:.3f} ms")
+    twins = [served["twins"]] + list(served["mixed"]["twins"].values())
+    print(f"graphs: graphed streams equal to eager {sum(t['identical'] for t in twins)}/"
+          f"{sum(t['requests'] for t in twins)} requests, "
+          f"{sum(len(t['partings']) for t in twins)} near-tie parting(s); captured verify "
+          f"bitwise the captured decode steps {prof['spec_bits']['graph_bit_equal']}")
     print(f"spec: verify vs decode bit-equal {prof['spec_bits']['bit_equal']}; streams equal "
           f"to plain {served['mixed']['identical']}; {len(served['mixed']['partings'])} "
           f"near-tie parting(s); sampler on CUDA equal to CPU {prng_check['draws_equal']}")

@@ -23,3 +23,13 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch path on the CPU")
     return dev
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on `device`.  On CUDA it is staged in pinned memory and
+    copied without blocking the host: a pageable copy would wait for all
+    the work queued on the stream (a decode chunk in flight).  The caching
+    host allocator keeps the staging block until its copy has run."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -177,12 +177,15 @@ def attention(
             # keep the trailing `smax` rows, rolled so slot == pos % smax
             out = _attn_chunked(q, k, v, positions, positions, True, cfg.window,
                                 kv_block)
-            shift = torch.remainder(positions[:, -smax].to(torch.int32), smax)
-            for i in range(b):
-                sh = int(shift[i])
-                ck[i] = torch.roll(k[i, -smax:].to(ck.dtype), sh, dims=0)
-                cv[i] = torch.roll(v[i, -smax:].to(cv.dtype), sh, dims=0)
-                ckpos[i] = torch.roll(positions[i, -smax:].to(torch.int32), sh, dims=0)
+            # (a gather by per-lane index, no host read: it captures in a
+            # CUDA graph)
+            shift = torch.remainder(positions[:, -smax].to(torch.int64), smax)
+            src = torch.remainder(torch.arange(smax, device=x.device)[None, :]
+                                  - shift[:, None], smax)
+            for leaf, new in ((ck, k), (cv, v), (ckpos, positions)):
+                tail = new[:, -smax:]
+                idx = src.reshape((b, smax) + (1,) * (tail.dim() - 2)).expand(tail.shape)
+                leaf.copy_(torch.gather(tail, 1, idx).to(leaf.dtype))
         else:
             bidx = torch.arange(b, device=x.device)[:, None]
             if spec and s > 1:

@@ -113,7 +113,11 @@ def release_attn(pool: dict, page_ids, slot: int) -> dict:
     """Release a slot from a paged attention stack, in place: freed pages'
     kpos rows return to the sentinel and the slot's table/counters go
     pristine.  ``page_ids (n_bt,)`` is padded with SCRATCH_PAGE."""
-    pool["kpos"][:, page_ids.long()] = KPOS_SENTINEL
+    kpos = pool["kpos"]
+    # the sentinel as a device fill (a Python scalar stored through an
+    # index is a host-to-device copy, which waits for the whole stream)
+    kpos[:, page_ids.long()] = torch.full((kpos.shape[0], page_ids.shape[0], kpos.shape[2]),
+                                          KPOS_SENTINEL, dtype=kpos.dtype, device=kpos.device)
     pool["pos"][:, slot] = 0
     pool["bt"][:, slot] = SENTINEL_PAGE
     pool["alloc"][:, slot] = 0

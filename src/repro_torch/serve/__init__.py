@@ -1,7 +1,8 @@
-"""Continuous-batching serving runtime (port of `repro.serve`, the
-synchronous path): `Scheduler` over a paged `SlotKVCache` with greedy and
-sampled requests and n-gram speculative decoding (`SpecConfig`), and the
-`ServeEngine` facade.
+"""Continuous-batching serving runtime (port of `repro.serve`): `Scheduler`
+over a paged `SlotKVCache` with greedy and sampled requests and n-gram
+speculative decoding (`SpecConfig`), its decode and prefill programs run
+as captured CUDA graphs (`graphs`) under double-buffered admission, and
+the `ServeEngine` facade.
 """
 from repro_torch.serve import sampler
 from repro_torch.serve.engine import ServeEngine

@@ -17,7 +17,11 @@ provisions full stripe capacity.
 
 Stripe mode (``page=None``): each lane pins a full ``max_seq`` stripe.
 
-The pool is updated in place where the reference donated its buffers.
+The pool is updated in place where the reference donated its buffers,
+and `reset_all` fills the same storage: the scheduler's captured CUDA
+graphs hold the leaves' addresses.  Host-built tables reach the device
+through pinned memory (`device.to_device`), so admission and release never
+wait for a decode chunk in flight.
 ``slot_len`` mirrors each slot's actual cache rows; ``slot_capacity`` is
 the row reservation made at insert.  ``rollback`` commits a speculative
 verify's accepted rows and sweeps the rest; ``rollback_sweeps`` counts the
@@ -30,7 +34,11 @@ import collections
 import numpy as np
 import torch
 
+from repro_torch.device import to_device
 from repro_torch.models import paging, zoo
+
+# the pristine value of each cache leaf (`zoo.make_cache`); 0 elsewhere
+_PRISTINE = {"kpos": paging.KPOS_SENTINEL, "bt": paging.SENTINEL_PAGE}
 
 
 class SlotKVCache:
@@ -56,6 +64,7 @@ class SlotKVCache:
                 alloc_req = int(n_pages)
             self.n_pages = paging.N_RESERVED + max(1, alloc_req)
             self._page_ref = np.zeros((self.n_pages,), np.int64)
+        self.cache = None
         self.reset_all()
 
     # -- accounting -----------------------------------------------------------
@@ -130,8 +139,8 @@ class SlotKVCache:
             bt_row = np.full((self.n_bt,), paging.SENTINEL_PAGE, np.int32)
             ids[:n_alloc] = bt_row[:n_alloc] = pages
             zoo.paged_insert(self.cfg, self.cache, cache, slot, row,
-                             torch.from_numpy(ids).to(self.device),
-                             torch.from_numpy(bt_row).to(self.device), n_alloc)
+                             to_device(torch.from_numpy(ids), self.device),
+                             to_device(torch.from_numpy(bt_row), self.device), n_alloc)
             self._slot_pages[slot] = pages
         else:
             for name, leaf in self.cache.items():
@@ -153,7 +162,7 @@ class SlotKVCache:
             ids = np.full((self.n_bt,), paging.SCRATCH_PAGE, np.int32)
             ids[: len(freed)] = freed
             zoo.paged_release(self.cfg, self.cache, slot,
-                              torch.from_numpy(ids).to(self.device))
+                              to_device(torch.from_numpy(ids), self.device))
             self._free_pages.extend(freed)
         else:
             pristine = self.template(1)
@@ -185,16 +194,19 @@ class SlotKVCache:
         self.rollback_sweeps += n
 
     def reset_all(self) -> None:
-        if self.paged:
-            self.cache = zoo.make_cache(self.cfg, self.n_slots, self.max_seq,
-                                        page=self.page, n_pages=self.n_pages,
+        """Every slot and page free, the pool pristine: allocated on the
+        first call, filled in place after."""
+        if self.cache is None:
+            kw = (dict(page=self.page, n_pages=self.n_pages) if self.paged else {})
+            self.cache = zoo.make_cache(self.cfg, self.n_slots, self.max_seq, **kw,
                                         **self._cache_kw)
+        else:
+            for name, leaf in self.cache.items():
+                leaf.fill_(_PRISTINE.get(name, 0))
+        if self.paged:
             self._free_pages = collections.deque(range(paging.N_RESERVED, self.n_pages))
             self._page_ref[:] = 0
             self._slot_pages: dict[int, list[int]] = {}
-        else:
-            self.cache = zoo.make_cache(self.cfg, self.n_slots, self.max_seq,
-                                        **self._cache_kw)
         self._free = list(range(self.n_slots))
         self.slot_len = np.zeros((self.n_slots,), np.int64)
         self._slot_cap = np.zeros((self.n_slots,), np.int64)

@@ -296,7 +296,8 @@ def reference_spec_streams(setup):
 
 
 def _port_run(cfg, model, spec, **kw):
-    sched = serve.Scheduler(cfg, model, spec=spec, device="cpu", **dict(SCHED, **kw))
+    sched = serve.Scheduler(cfg, model, spec=spec, async_admission=False, device="cpu",
+                            **dict(SCHED, **kw))
     reqs = _workload(serve, cfg.vocab)
     sched.run(reqs)
     return sched, reqs
@@ -330,7 +331,7 @@ def test_spec_streams_identical(setup, reference_spec_streams, mode):
 def test_spec_pool_conserves_pages(setup, reference_spec_streams, fused):
     _, cfg, _, model = setup
     sched = serve.Scheduler(cfg, model, spec=serve.SpecConfig(k=3, fused=fused),
-                            device="cpu", **SCHED)
+                            async_admission=False, device="cpu", **SCHED)
     kv = sched.kv
     pending = _workload(serve, cfg.vocab)
     reqs, t = list(pending), 0
@@ -357,7 +358,8 @@ def test_spec_per_request_opt_out_and_eos(setup, reference_spec_streams):
     emit exactly where non-speculative decode stops."""
     _, cfg, _, model = setup
     want = reference_spec_streams[0]
-    sched = serve.Scheduler(cfg, model, spec=serve.SpecConfig(k=3), device="cpu", **SCHED)
+    sched = serve.Scheduler(cfg, model, spec=serve.SpecConfig(k=3), async_admission=False,
+                            device="cpu", **SCHED)
     reqs = _workload(serve, cfg.vocab)
     reqs[0].params.spec_k = 0
     eos = want[4][5]
