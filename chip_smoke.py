@@ -15,8 +15,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                library call where there is one (timed here only; the port
                never calls it) and the bound; K2 at the verify's s = 4 and
                K1 at its B 16 held bitwise against their single-row /
-               B 4 calls; the threefry PRNG and sampler on CUDA held equal
-               to the CPU.
+               B 4 calls; K2 at the extension widths s 16-256 (row tiles)
+               and K1 at the extension's B 256 and 1,024; the threefry
+               PRNG and sampler on CUDA held equal to the CPU.
   4. prune   — full-width qwen2-0.5b (24 layers, bf16, random weights from
                seed 0): `ops.nm_apply` over its 24 down projections (the
                nm_select path, launch count asserted); `prune_model`
@@ -45,6 +46,15 @@ Phases (each prints its own lines; any failure exits non-zero):
                served plain, with SpecConfig(k=3) fused and unfused: launch
                counts per verify asserted, acceptance and tokens per verify
                printed, streams identical or every parting a near tie.
+               Then the share workload (12 requests, 9 over one 72-token
+               system prompt, 3 long ones over its first 32 tokens) with
+               prefix sharing off, on, on with prefill_chunk=64, and that
+               with SpecConfig(k=3, fused=False): hits, copy-on-write,
+               fewer prefill rows and held page-steps than sharing off, the
+               chunked per-step bound, refcount conservation and a pristine
+               pool after `clear_prefix_cache()`, K2 at an extension width
+               over 98 rows; streams equal across runs or parted at a near
+               tie (the extension path's measured logit noise).
   6. agree   — teacher-forced prefill + 4 paged decode steps with the
                kernels, with the plain versions and with the masked-dense
                twin (torch.matmul): logits must agree.
@@ -182,12 +192,16 @@ def k1_random(label, n_out, n_in, b, dtype, v, gen):
 
 
 def paged_case(b, s, kvh, g, hd, page, n_bt, n_pages, dtype, seed, sweep=2, full=False,
-               idle=None):
+               idle=None, extend=False):
     """Randomly allocated paged pool with sentinel pages (unallocated table
     tail) and swept rows (kpos reset to the sentinel, as a rollback leaves).
     `full`: every slot's table allocated and every row live.  `idle`: that
     slot becomes an idle lane — its whole table the sentinel page (whose V
-    is random like every page's), its position 0."""
+    is random like every page's), its position 0.  `extend`: an extension
+    prefill's layout — every table entry allocated, each slot's s query
+    rows starting mid-table (after 16 to 128 prefix rows) at consecutive
+    positions, the rows up to the last query's (or the view's end) live,
+    the rest unwritten."""
     from repro_torch.models import paging
 
     rng = np.random.default_rng(seed)
@@ -200,6 +214,14 @@ def paged_case(b, s, kvh, g, hd, page, n_bt, n_pages, dtype, seed, sweep=2, full
     rng.shuffle(free)
     positions = []
     for bi in range(b):
+        if extend:
+            pages = [free.pop() for _ in range(n_bt)]
+            bt[bi] = pages
+            start = int(rng.integers(16, 129))
+            for r in range(min(start + s, n_bt * page)):
+                kpos[pages[r // page], r % page] = r
+            positions.append([start + i for i in range(s)])
+            continue
         n_alloc = n_bt if full else int(rng.integers(1, n_bt + 1))
         pages = [free.pop() for _ in range(n_alloc)]
         bt[bi, :n_alloc] = pages
@@ -248,7 +270,8 @@ def sdpa_view(q, kp, vp, kpos, bt, q_pos, window):
     return F.scaled_dot_product_attention(qt, k, v, attn_mask=m)
 
 
-def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=None):
+def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=None,
+            extend=False):
     """Hold K2 against its plain version on a random paged pool (B slots,
     KV 2, G 7, page 16) and time kernel, plain version, SDPA over the
     gathered view, SDPA alone (its inputs gathered and GQA-expanded before
@@ -261,9 +284,9 @@ def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=N
     kvh, g, page = 2, 7, 16
     n_pages = b * n_bt + 2
     q, kp, vp, kpos, bt, q_pos = paged_case(b, s, kvh, g, hd, page, n_bt, n_pages, dtype,
-                                            seed, full=full, idle=idle)
+                                            seed, full=full, idle=idle, extend=extend)
     out = pa.paged_decode_attn(q, kp, vp, kpos, bt, q_pos, window=window)
-    n_splits = pa.paged_decode_attn.last_splits
+    n_splits, n_tiles = pa.paged_decode_attn.last_splits, pa.paged_decode_attn.last_tiles
     torch.cuda.synchronize()
     ref = pa.paged_decode_attn_ref(q, kp, vp, kpos, bt, q_pos, window=window)
     torch.cuda.synchronize()
@@ -278,16 +301,19 @@ def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=N
     isz = q.element_size()
     # what the function needs: each distinct page's k, v, kpos read once
     # (the shared sentinel page once, however many table entries name it),
-    # and scores only over the slots' allocated pages
+    # and scores only for the (query, key) pairs the mask keeps
     page_rows = torch.unique(bt).numel() * page
-    alloc_rows = int((bt != paging.SENTINEL_PAGE).sum()) * page
     nbytes = (2 * q.numel() * isz + page_rows * (2 * kvh * hd * isz + 4)
               + bt.numel() * 4 + q_pos.numel() * 4)
-    ops = 4.0 * kvh * s * g * alloc_rows * hd        # q.k and p.v, f32 in-kernel
+    view = paging.gather_view(kpos, bt)
+    keep = view[:, None, :] <= q_pos[:, :, None]
+    if window:
+        keep &= view[:, None, :] > q_pos[:, :, None] - window
+    ops = 4.0 * kvh * g * int(keep.sum()) * hd       # q.k and p.v, f32 in-kernel
     b_ms, b_by = bound(nbytes, ops, dtype)
     tol = K2_TOL[dtype]
     line = dict(case=label, B=b, s=s, window=window, KV=kvh, G=g, hd=hd, page=page,
-                n_bt=n_bt, dtype=str(dtype).split(".")[-1], n_splits=n_splits,
+                n_bt=n_bt, dtype=str(dtype).split(".")[-1], n_splits=n_splits, n_tiles=n_tiles,
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 sdpa_only_ms=only_ms, bound_ms=b_ms, bound_by=b_by)
     if idle is not None:
@@ -301,7 +327,8 @@ def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=N
             raise AssertionError(f"K2 {label} {dtype}: s={s} rows are not bitwise the s=1 "
                                  "calls' (a verify would not be decode)")
     print(f"K2 {label:18s} B={b:<3d} s={s} window={window:<3d} n_bt={n_bt:<4d} hd={hd:<3d} "
-          f"{line['dtype']:8s} splits {n_splits:<3d} err={err:.2e} (tol {tol:.0e}) kernel "
+          f"{line['dtype']:8s} splits {n_splits:<3d} tiles {n_tiles} err={err:.2e} (tol {tol:.0e}) "
+          f"kernel "
           f"{ms*1e3:7.1f} us  plain {plain_ms*1e3:8.1f} us  sdpa(view) {lib_ms*1e3:7.1f} us  "
           f"sdpa alone {only_ms*1e3:7.1f} us  bound {b_ms*1e3:6.2f} us ({b_by})"
           + (f"  rows bitwise the single-row calls' {line['rows_bit_equal_s1']}"
@@ -344,7 +371,59 @@ def k2_cases():
         out.append(k2_case("unaligned hd", 4, 3, 0, dtype, seed, hd=18))
     if {c["n_splits"] == 1 for c in out} != {True, False}:
         raise AssertionError("K2 cases do not cover both the one-split and the combine path")
+    if {c["n_tiles"] for c in out} != {1}:
+        raise AssertionError("a decode or verify shape of K2 ran in row tiles")
     return out
+
+
+# the extension prefill's widths: a chunk (16, 64) or a suffix bucket (128,
+# 256) of query rows per slot
+K2_EXTENSION_S = (16, 64, 128, 256)
+
+
+def k2_extension_cases():
+    """K2 at the extension widths, s 16, 64, 128 and 256 query rows per
+    slot over B 4, KV 2, G 7, hd 64, page 16, n_bt 16 (every entry
+    allocated), bf16 and f32, each slot's rows starting mid-table (after
+    16-128 prefix rows): held against the plain version and timed beside
+    SDPA over the gathered view, SDPA alone and the bound; each s > 1 case
+    also holds its rows bitwise against single-row calls (a row tile keeps
+    a row's bits).  Every s here runs in row tiles (over TILE_ROWS rows a
+    block)."""
+    out = []
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        for j, s in enumerate(K2_EXTENSION_S):
+            out.append(k2_case(f"extension s={s}", 4, s, 0, dtype, 100 + 10 * i + j,
+                               extend=True))
+    tiled = {c["s"] for c in out if c["n_tiles"] > 1}
+    if tiled != set(K2_EXTENSION_S):
+        raise AssertionError(f"K2 extension cases ran row tiles only at s {sorted(tiled)}")
+    return out
+
+
+def k2_tile_sweep():
+    """K2 (bf16) at s 16, 64 and 256 in the extension layout, through the
+    wrapper's private launch at forced rows a block (the plan's splits):
+    what the plan's TILE_ROWS cap rests on.  Each held against the plain
+    version."""
+    from repro_torch.kernels import paged_attn as pa
+
+    sweep = {}
+    for s in (16, 64, 256):
+        args = paged_case(4, s, 2, 7, 64, 16, 16, 4 * 16 + 2, torch.bfloat16, 7, extend=True)
+        ref = pa.paged_decode_attn_ref(*args).float()
+        row = {}
+        for rows in (r for r in (28, 56, 112, 224, 448) if r <= 7 * s):
+            run = lambda: pa._launch(*args, 0, None, rows)  # noqa: E731
+            err = float((run()[0].float() - ref).abs().max())
+            if not err <= K2_TOL[torch.bfloat16]:
+                raise AssertionError(f"K2 at {rows} rows a block, s={s}: error {err}")
+            row[rows] = time_ms(run)
+        pa.paged_decode_attn(*args)
+        sweep[f"s={s}"] = {"plan_tiles": pa.paged_decode_attn.last_tiles, "ms_by_rows": row}
+        print(f"K2 tile sweep s={s} (plan: {pa.paged_decode_attn.last_tiles} tiles): " + "  ".join(
+            f"{r} rows: {ms*1e3:.1f} us" for r, ms in row.items()), flush=True)
+    return {"tile_sweep": sweep}
 
 
 def k2_split_sweep():
@@ -445,8 +524,9 @@ def kernels_phase():
         raise AssertionError(f"K1 dispatch crossover is not K1_CROSSOVER = {K1_CROSSOVER}: {at}")
     layer, crossover, ps, dense = k1_layer(gen)
     layer["verify"] = k1_verify_layer(gen, ps, dense)
-    k2 = k2_cases()
-    k2_sweep = k2_split_sweep()
+    layer["extension"] = {b: k1_extension_layer(gen, ps, dense, b) for b in (256, 1024)}
+    k2 = k2_cases() + k2_extension_cases()
+    k2_sweep = k2_split_sweep() | k2_tile_sweep()
     k3 = [k3_case("random", k3_input(shape, dtype, gen), nn, mm)
           for dtype in (torch.bfloat16, torch.float32) for shape in K3_SHAPES
           for nn, mm in K3_NM]
@@ -561,6 +641,40 @@ def k1_verify_layer(gen, ps, dense, b=16):
             raise AssertionError(f"K1 verify layer {var}: relative error {rel}")
         out[var] = line
     return out
+
+
+def k1_extension_layer(gen, ps, dense, b):
+    """An extension prefill's layer: the seven projections at B = 4 slots x
+    the width bucket (256 = 4 x 64, a chunk; 1,024 = 4 x 256, a long
+    suffix), bf16, V 32, the variant the dispatch picks ("mma"): checked
+    against the plain version, timed as one call of seven launches, with
+    `torch.matmul` and the bound."""
+    from repro_torch.kernels import hinm_spmm as hs
+
+    dt = torch.bfloat16
+    xs_by_n = {n: torch.randn((b, n), generator=gen, device="cuda").to(dt)
+               for n in (896, 4864)}
+    xs = [xs_by_n[p.n_in] for p in ps]
+    ys = [hs.hinm_spmm(x, p) for x, p in zip(xs, ps)]
+    torch.cuda.synchronize()
+    refs = [hs.hinm_spmm_ref(x, p) for x, p in zip(xs, ps)]
+    rel = max(float((y.float() - r.float()).abs().max()) / float(r.float().abs().max())
+              for y, r in zip(ys, refs))
+    err = max(float((y.float() - r.float()).abs().max()) for y, r in zip(ys, refs))
+    ms = time_ms(lambda: [hs.hinm_spmm(x, p) for x, p in zip(xs, ps)])
+    plain_ms = time_ms(lambda: [hs.hinm_spmm_ref(x, p) for x, p in zip(xs, ps)])
+    lib_ms = time_ms(lambda: [torch.matmul(x, w.T) for x, w in zip(xs, dense)])
+    nbytes = (sum(x.numel() * 2 for x in xs_by_n.values())
+              + sum(p.packed_bytes() + b * p.n_out * 2 for p in ps))
+    b_ms, b_by = bound(nbytes, sum(2.0 * p.vals.numel() * b for p in ps), dt)
+    var = hs.variant(b, ps[0], dt)
+    print(f"K1 extension layer (7 projections, B={b}, bf16, V=32, {var}): rel_err={rel:.2e} "
+          f"(tol {K1_TOL[dt]:.0e}) kernel {ms*1e3:8.1f} us  plain {plain_ms*1e3:8.1f} us  "
+          f"matmul {lib_ms*1e3:8.1f} us  bound {b_ms*1e3:7.2f} us ({b_by})", flush=True)
+    if not rel <= K1_TOL[dt]:
+        raise AssertionError(f"K1 extension layer B {b}: relative error {rel}")
+    return dict(B=b, variant=var, max_rel_err=rel, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def k1_prefill_layer(k1, launches):
@@ -1061,6 +1175,8 @@ def serve_phase(cfg, model):
     if prefill_k1 != per_step_k1:
         raise AssertionError(f"{prefill_k1} hinm_spmm launches per prefill, expected "
                              f"{per_step_k1}")
+    # the served runs left their prompts' pages in the prefix index
+    sched.clear_prefix_cache()
     prof = step_profile(cfg, model, sched.kv)
     dev, w = prof["device_ms"], prof["wall_ms"]
     print(f"step profile, live pool of {len(PROFILE_LENS)} slots (prompts "
@@ -1089,11 +1205,12 @@ def serve_phase(cfg, model):
     twins = twins_gate("greedy", cfg, model, sched, prompts, runs, prof["spec_bits"])
     before_after("greedy", runs)
     mixed = mixed_phase(cfg, model, sched, prof)
+    shared = share_phase(cfg, model, sched, prof["spec_bits"], mixed["prefill_width_noise"])
     return {"hinm_spmm": k1_n, "paged_decode_attn": k2_n,
             "decode_tok_s": line["decode_tok_s"], "served_p50_step_ms": line["p50_step_ms"],
             "profile": prof, "wall_s": line["wall_s"], "prefill_k1_per_admission": prefill_k1,
             "runs": {mode: ln for mode, (_, ln) in runs.items()}, "twins": twins,
-            "mixed": mixed}
+            "mixed": mixed, "shared": shared}
 
 
 # examples/serve_hinm.py's workload (build_workload at its defaults: 10
@@ -1123,17 +1240,21 @@ def admission_groups(reqs) -> dict:
 
 class DeviceClock:
     """CUDA events around every replay the scheduler's graph cache makes
-    of a decode program (the chunk, the fused spec loop, the unfused
-    proposal and verify): their summed device time.  A replay is one host
-    call, so its events bracket device work only; the unfused chain's eager
-    rollbacks and the prefills are not counted."""
+    (`timed`): the summed device time of the decode programs' replays (the
+    chunk, the fused spec loop, the unfused proposal and verify) and, apart,
+    of the extension programs'.  A replay is one host call, so its events
+    bracket device work only; the unfused chain's eager rollbacks and the
+    group prefills are not counted.  Every key run, replayed or not, is
+    kept in ``keys``."""
 
-    def __init__(self, sched):
-        self.pairs = []
+    def __init__(self, sched, timed=True):
+        self.pairs = {"decode": [], "extend": []}
+        self.keys = []
         cache, run = sched.graphs, sched.graphs.run
 
-        def timed(key, body):
-            if key[0] == "prefill":
+        def timed_run(key, body):
+            self.keys.append(key)
+            if not timed or key[0] == "prefill":
                 return run(key, body)
             n = cache.replays
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1141,15 +1262,42 @@ class DeviceClock:
             run(key, body)
             end.record()
             if cache.replays > n:
-                self.pairs.append((start, end))
-        cache.run = timed
+                self.pairs["extend" if key[0] == "extend" else "decode"].append((start, end))
+        cache.run = timed_run
         self._restore = lambda: delattr(cache, "run")
 
-    def stop(self) -> float:
-        """Stop timing; the summed device ms of the replays."""
+    def stop(self) -> dict:
+        """Stop timing; the summed device ms of the decode and of the
+        extension replays, and the number of extension replays."""
         self._restore()
         torch.cuda.synchronize()
-        return float(sum(s.elapsed_time(e) for s, e in self.pairs))
+        ms = {k: float(sum(s.elapsed_time(e) for s, e in v)) for k, v in self.pairs.items()}
+        return dict(ms, extend_replays=len(self.pairs["extend"]))
+
+
+def drive(sched, reqs):
+    """`Scheduler.run`'s loop, sampling the pool after every step: the
+    live page-steps (pages live slots map, summed over steps; what
+    serve_bench's replay integrates), the held page-steps (those plus the
+    pages pending admission groups have reserved), the most prefill rows
+    one step computed, and the refcount conservation law, asserted."""
+    kv = sched.kv
+    pending = sorted(reqs, key=lambda r: (r.arrival, r.rid))
+    t = live = held = most = 0
+    while pending or sched.n_pending:
+        while pending and pending[0].arrival <= t:
+            sched.submit(pending.pop(0))
+        rows = sched.stats.prefill_rows
+        sched.step()
+        t += 1
+        most = max(most, sched.stats.prefill_rows - rows)
+        live += kv.n_live_pages
+        held += kv.n_live_pages + sched._pending_pages
+        if kv.paged and kv.n_free_pages + kv.n_referenced_pages != kv.n_alloc_pages:
+            raise AssertionError(f"step {t}: {kv.n_free_pages} free + {kv.n_referenced_pages} "
+                                 f"referenced pages != {kv.n_alloc_pages}")
+    return dict(live_page_steps=live, held_page_steps=held, max_prefill_rows_step=most,
+                steps=t)
 
 
 def serve_run(label, sched, make_requests):
@@ -1157,22 +1305,24 @@ def serve_run(label, sched, make_requests):
     warm-up run, whose first use of each program runs it eagerly and
     captures it; the graphed run, which replays them; and its eager twin
     under `graphs._eager()`.  Launch counts are set to 0 just before each
-    measured run and read just after.  Checks every request ran to its
-    budget.  The graphed run's decode programs are timed on the device
-    (`DeviceClock`); the eager twin runs the same device work, so both
-    runs' idle share is 1 - that device time per decode step / the run's
-    wall time per decode step.  Returns {"graphed" | "eager": (requests,
-    line)}."""
+    measured run and read just after.  Each run goes through `drive`
+    (page-steps, the busiest step's prefill rows, refcount conservation).
+    Checks every request ran to its budget.  The graphed run's decode and
+    extension programs are timed on the device (`DeviceClock`); the eager
+    twin runs the same device work, so both runs' idle share is 1 - that
+    decode device time per decode step / the run's wall time per decode
+    step.  Returns {"graphed" | "eager": (requests, line)}."""
     from repro_torch.kernels import hinm_spmm as hs
     from repro_torch.kernels import paged_attn as pa
     from repro_torch.serve import graphs
 
     g = sched.graphs
     sched.reset()
-    sched.run(make_requests())
+    drive(sched, make_requests())
     warm = g.captures
     runs = {}
-    device_ms = None    # the graphed run's; its eager twin does the same device work
+    # the graphed run's; its eager twin does the same device work
+    device_ms = extend_ms = extend_n = None
     for mode in ("graphed", "eager"):
         sched.reset()
         reqs = make_requests()
@@ -1180,14 +1330,15 @@ def serve_run(label, sched, make_requests):
         torch.cuda.synchronize()
         hs.hinm_spmm.launches = 0
         pa.paged_decode_attn.launches = 0
-        clock = DeviceClock(sched) if mode == "graphed" else None
+        clock = DeviceClock(sched, timed=mode == "graphed")
         t0 = time.perf_counter()
         with graphs._eager() if mode == "eager" else contextlib.nullcontext():
-            sched.run(reqs)
+            pool = drive(sched, reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        ms = clock.stop()
         if mode == "graphed":
-            device_ms = clock.stop()
+            device_ms, extend_ms, extend_n = ms["decode"], ms["extend"], ms["extend_replays"]
         k1_n, k2_n = hs.hinm_spmm.launches, pa.paged_decode_attn.launches
         st = sched.stats
         for r in reqs:
@@ -1207,7 +1358,12 @@ def serve_run(label, sched, make_requests):
                     graphs_captured_warmup=warm, graphs_captured=g.captures - c0,
                     graph_replays=g.replays - r0,
                     mean_step_ms=st.decode_seconds / st.decode_steps * 1e3,
-                    device_step_ms=device_ms / st.decode_steps)
+                    device_step_ms=device_ms / st.decode_steps,
+                    prefill_rows=st.prefill_rows, prefix_hit_tokens=st.prefix_hit_tokens,
+                    prefix_hit_rate=st.prefix_hit_rate, prefill_chunks=st.prefill_chunks,
+                    cow_copies=getattr(sched.kv, "cow_copies", 0),
+                    extend_widths=sorted({k[1] for k in clock.keys if k[0] == "extend"}),
+                    extend_device_ms=extend_ms, extend_replays=extend_n, **pool)
         line["idle_share"] = 1 - line["device_step_ms"] / line["mean_step_ms"]
         print(f"{label:19s} {mode:7s}: {len(reqs)} requests in {wall:.2f} s, "
               f"{st.decode_tokens} decode tokens, {st.decode_steps} decode steps "
@@ -1216,7 +1372,14 @@ def serve_run(label, sched, make_requests):
               + (f"acceptance {st.acceptance_rate:.3f} ({st.draft_accepted}/"
                  f"{st.draft_proposed}), {st.tokens_per_verify_step:.3f} tokens per verify; "
                  if st.verify_steps else "")
-              + f"launches hinm_spmm {k1_n}, paged_decode_attn {k2_n}; overlapped admission "
+              + (f"prefix hit rate {st.prefix_hit_rate:.3f} ({st.prefix_hit_tokens} rows), "
+                 f"{st.prefill_chunks} extension chunks (widths {line['extend_widths']}; "
+                 f"{extend_n} replays, {extend_ms:.3f} ms of device time), "
+                 f"{line['cow_copies']} copy-on-write; "
+                 if sched.prefix is not None else "")
+              + f"prefill rows {st.prefill_rows} (most in one step {pool['max_prefill_rows_step']}), "
+              f"page-steps live {pool['live_page_steps']} held {pool['held_page_steps']}; "
+              f"launches hinm_spmm {k1_n}, paged_decode_attn {k2_n}; overlapped admission "
               f"groups {line['overlapped_groups']}; graphs captured {line['graphs_captured']} "
               f"(warm-up run {warm}), replays {line['graph_replays']}; mean step "
               f"{line['mean_step_ms']:.2f} ms against {line['device_step_ms']:.3f} ms of "
@@ -1260,7 +1423,7 @@ def twins_gate(label, cfg, model, sched, prompts, runs, bits):
             continue
         j = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y),
                  min(len(a.tokens), len(b.tokens)))
-        margin, drawn = parting_margin(cfg, model, sched, prompts, a, groups[a.rid], j)
+        margin, drawn, _ = parting_margin(cfg, model, sched, prompts, a, groups[a.rid], j)
         partings.append(dict(rid=a.rid, index=j, margin=margin,
                              replay_matches=drawn == a.tokens[j],
                              near_tie=drawn == a.tokens[j] and margin <= delta and delta > 0))
@@ -1314,14 +1477,22 @@ def prefill_width_noise(cfg, model, sched, prompts, steps=24):
 
 
 @torch.no_grad()
-def parting_margin(cfg, model, sched, prompts, req, group, j):
+def parting_margin(cfg, model, sched, prompts, req, group, j, other=None):
     """The top-2 margin, in logits, of the plain run's draw of token j of
     `req`: its admission group re-prefilled exactly as `Scheduler` did
     (same members, bucket and padded width, so bitwise the same rows), its
     row inserted into a 4-slot pool of the served geometry, then decode
     steps fed its own tokens up to j.  A sampled request's margin is taken
     on its Gumbel-perturbed, top-k-masked scores (its key at index j),
-    scaled back by T.  Returns (margin, the token the replay draws)."""
+    scaled back by T.  A sampled draw also flips where a logit crosses the
+    top-k cut, which the top-2 margin does not see; with `other` (the token
+    the other run drew there): outside the plain run's top k, its logit
+    must cross the cut and its perturbed score then beat the draw's, so the
+    margin is the larger of those two gaps; the runner-up, the draw itself
+    may fall below the cut, so the margin is the smaller of the top-2
+    margin and the draw's logit above the (k+1)-th.  Returns (margin, the
+    token the replay draws, `other`'s rank in the plain run's logits or
+    None)."""
     from repro_torch.models import zoo
     from repro_torch.serve import prng, sampler
     from repro_torch.serve.kv import SlotKVCache
@@ -1359,7 +1530,20 @@ def parting_margin(cfg, model, sched, prompts, req, group, j):
                                      torch.tensor([p.top_p], device="cuda"))
         scores = (masked + prng.gumbel(key, cfg.vocab)) * p.temperature
     top2 = torch.topk(scores[0], 2)
-    return float(top2.values[0] - top2.values[1]), int(top2.indices[0])
+    margin, drawn = float(top2.values[0] - top2.values[1]), int(top2.indices[0])
+    rank = None
+    if other is not None:
+        lg = logits[0]
+        rank = int((lg > lg[other]).sum())
+        if p.temperature > 0 and p.top_k > 0:
+            edge = torch.topk(lg, p.top_k + 1).values      # the k-th and (k+1)-th logits
+            if rank >= p.top_k:
+                lifted = float((lg[other] / p.temperature + prng.gumbel(key, cfg.vocab)[0, other])
+                               * p.temperature)
+                margin = max(float(edge[-2] - lg[other]), float(top2.values[0]) - lifted)
+            elif other == int(top2.indices[1]):
+                margin = min(margin, float(lg[drawn] - edge[-1]))
+    return margin, drawn, rank
 
 
 def mixed_phase(cfg, model, sched, prof):
@@ -1408,7 +1592,7 @@ def mixed_phase(cfg, model, sched, prof):
             if a.tokens == b.tokens:
                 continue
             j = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y)
-            margin, drawn = parting_margin(cfg, model, sched, prompts, a, groups0[a.rid], j)
+            margin, drawn, _ = parting_margin(cfg, model, sched, prompts, a, groups0[a.rid], j)
             ok = (groups[a.rid] != groups0[a.rid] and drawn == a.tokens[j]
                   and margin <= delta)
             partings.append(dict(run=label, rid=a.rid, index=j, margin=margin,
@@ -1431,6 +1615,217 @@ def mixed_phase(cfg, model, sched, prof):
                              f"near-tie rule: {bad}")
     return {"runs": {k: {mode: ln for mode, (_, ln) in v.items()} for k, v in runs.items()},
             "identical": same, "near_tie_threshold": delta, "prefill_width_noise": noise,
+            "partings": partings, "twins": twins}
+
+
+# the share phase's workload: 12 requests, one arriving per step, 24 new
+# tokens each, every fourth sampled as in the mix; nine open with one
+# 72-token system prompt (4 full pages and 8 rows of a fifth) and a private
+# tail of 12-40 tokens, three (rids 2, 6 and 10, after the first two
+# sharers have registered their pages) with only its first 32 tokens and a
+# private tail of 140-180
+SHARE_REQUESTS, SHARE_SYSTEM, SHARE_HEAD, SHARE_LONG = 12, 72, 32, (2, 6, 10)
+SHARE_CHUNK = 64
+
+
+def share_prompts(vocab):
+    rng = np.random.default_rng(4)
+    system = rng.integers(0, vocab, SHARE_SYSTEM).astype(np.int32)
+    out = []
+    for i in range(SHARE_REQUESTS):
+        if i in SHARE_LONG:
+            head, n_tail = system[:SHARE_HEAD], int(rng.integers(140, 181))
+        else:
+            head, n_tail = system, int(rng.integers(12, 41))
+        out.append(np.concatenate([head, rng.integers(0, vocab, n_tail).astype(np.int32)]))
+    return out
+
+
+def share_requests(prompts):
+    from repro_torch.serve import Request, SamplingParams
+
+    return [Request(rid=i, prompt=p, arrival=i, params=SamplingParams(
+        max_new_tokens=24, temperature=0.8 if i % 4 == 3 else 0.0,
+        top_k=16 if i % 4 == 3 else 0, seed=i)) for i, p in enumerate(prompts)]
+
+
+@torch.no_grad()
+def extension_noise(cfg, model, sched, prompts, steps=24):
+    """How far a request's logits move when admission serves it through the
+    extension path instead of a group prefill of its own: rid 1 (4 pages
+    mapped from rid 0's, an 8-row copy-on-write tail, its suffix in one
+    extension) and rid 2 (2 pages mapped, its 141-row suffix in one
+    extension, then in chunks of SHARE_CHUNK), each extension written from
+    its lane in a 4-lane batch as the scheduler runs it; the first token's
+    logits and `steps` paged decode steps fed the group path's greedy
+    tokens.  Returns the max |dlogit| against the group path."""
+    from repro_torch.models import zoo
+    from repro_torch.serve import sampler
+    from repro_torch.serve.kv import SlotKVCache
+
+    vocab, page = cfg.vocab, 16
+
+    def group(prompt, reserve):
+        kv = SlotKVCache(cfg, 4, sched.max_seq, page=page, n_pages=None, device="cuda")
+        n, s_b = len(prompt), sched._bucket_len(len(prompt))
+        toks = torch.zeros((1, s_b), dtype=torch.int32, device="cuda")
+        toks[0, :n] = torch.from_numpy(prompt).cuda()
+        st = kv.template(1)
+        last = zoo.prefill(model, cfg, toks, st,
+                           n_rows=torch.tensor([n], dtype=torch.int32, device="cuda"))
+        slot = kv.acquire()
+        kv.insert(slot, st, n, row=0, reserve=reserve)
+        return kv, slot, zoo.logits_fn(model, cfg, last)[:, :vocab]
+
+    def extended(prompt, n_shared, cow_rows, chunk):
+        kv, donor, _ = group(prompts[0], len(prompts[0]) + 1)
+        n = len(prompt)
+        pages = kv.slot_pages(donor)
+        slot = kv.acquire()
+        kv.map_slot(slot, pages[:n_shared], n_shared * page, n + steps + 1,
+                    cow_src=pages[n_shared] if cow_rows else None, cow_rows=cow_rows)
+        cur = n_shared * page + cow_rows
+        while cur < n:
+            w = min(n - cur, chunk)
+            w_b = sched._bucket_len(w)
+            toks = torch.zeros((4, w_b), dtype=torch.int32, device="cuda")
+            toks[slot, :w] = torch.from_numpy(prompt[cur:cur + w]).cuda()
+            keep = torch.zeros((4,), dtype=torch.int32, device="cuda")
+            keep[slot] = w
+            pos0 = zoo.cache_position(cfg, kv.cache)
+            x, undo = zoo.extend_step(model, cfg, toks, kv.cache)
+            zoo.cache_rollback(cfg, kv.cache, undo, pos0, keep, w_b)
+            cur += w
+        return kv, slot, zoo.logits_fn(model, cfg, x[slot, w - 1][None])[:, :vocab]
+
+    def decode(kv, slot, first, forced):
+        logits = [first]
+        tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+        for i in range(steps):
+            tok[slot, 0] = forced[i]
+            logits.append(zoo.decode_step(model, cfg, tok, kv.cache)[slot: slot + 1, :vocab])
+        return torch.cat(logits).float()
+
+    worst = 0.0
+    for rid, n_shared, cow_rows, chunks in ((1, 4, 8, (sched.max_seq,)),
+                                            (2, 2, 0, (sched.max_seq, SHARE_CHUNK))):
+        prompt = prompts[rid]
+        kv, slot, first = group(prompt, len(prompt) + steps + 1)
+        forced, logits = [], first
+        for _ in range(steps):        # the group path's own greedy tokens
+            forced.append(sampler.greedy(logits[-1:].float()))
+            tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+            tok[slot, 0] = forced[-1][0]
+            logits = zoo.decode_step(model, cfg, tok, kv.cache)[slot: slot + 1, :vocab]
+        base = decode(*group(prompt, len(prompt) + steps + 1), forced)
+        for chunk in chunks:
+            got = decode(*extended(prompt, n_shared, cow_rows, chunk), forced)
+            worst = max(worst, float((got - base).abs().max()))
+    return worst
+
+
+def share_phase(cfg, model, sched0, bits, width_noise):
+    """The share workload on the gyro-pruned packed model, through
+    `Scheduler(max_slots=4, max_seq=256, page=16, decode_chunk=8)`, four
+    runs, each graphed beside its eager twin (`serve_run`, `twins_gate`):
+    prefix sharing off; on; on with prefill_chunk=SHARE_CHUNK; and that with
+    SpecConfig(k=3, fused=False).  Asserted: K1 and K2 launched on every
+    run; refcount conservation at every step and a pristine pool after
+    `clear_prefix_cache()`; hits, copy-on-write and fewer prefill rows than
+    sharing off on the sharing runs; fewer held page-steps on the
+    unchunked sharing run (as serve_bench's replay asserts of its
+    unchunked run: a chunked admission holds its pages for every step its
+    chunks take, so the chunked runs hold more; live and held page-steps
+    are printed for every run); the chunked run's most prefill rows in a
+    step within SHARE_CHUNK x 4 slots and below the unchunked run's; an
+    unchunked extension wider than 98 rows (K2 in row tiles).  Streams must equal the sharing-off run's, or
+    part at a near tie: a request served another way (an extension, or
+    another group) whose draw in the sharing-off run (`parting_margin`,
+    exact) had a top-2 margin within the measured noise of the paths
+    (`extension_noise`, the prefill widths, the verify)."""
+    from repro_torch.models import paging
+    from repro_torch.serve import Scheduler, SpecConfig
+
+    prompts = share_prompts(cfg.vocab)
+    geom = dict(max_slots=4, max_seq=256, page=16, decode_chunk=8)
+    configs = {"off": dict(prefix_share=False), "on": dict(prefix_share=True),
+               "chunked": dict(prefix_share=True, prefill_chunk=SHARE_CHUNK),
+               "chunked spec": dict(prefix_share=True, prefill_chunk=SHARE_CHUNK,
+                                    spec=SpecConfig(k=SPEC_K, fused=False))}
+    runs, scheds, twins = {}, {}, {}
+    for label, kw in configs.items():
+        sched = scheds[label] = Scheduler(cfg, model, **geom, **kw)
+        runs[label] = serve_run(f"share {label}", sched, lambda: share_requests(prompts))
+        twins[label] = twins_gate(f"share {label}", cfg, model, sched, prompts, runs[label],
+                                  bits)
+        kv = sched.kv
+        freed = sched.clear_prefix_cache()
+        pristine = bool((kv.cache["kpos"][:, paging.N_RESERVED:] == paging.KPOS_SENTINEL).all())
+        print(f"share {label}: clear_prefix_cache() freed {freed} pages; {kv.n_free_pages} of "
+              f"{kv.n_alloc_pages} free, every kpos row past the reserved pages the sentinel: "
+              f"{pristine}", flush=True)
+        if kv.n_free_pages != kv.n_alloc_pages or not pristine:
+            raise AssertionError(f"share {label}: the pool is not pristine after "
+                                 "clear_prefix_cache()")
+        for mode, (_, ln) in runs[label].items():
+            if min(ln["hinm_spmm"], ln["paged_decode_attn"]) < 1:
+                raise AssertionError(f"share {label} ({mode}): a kernel was not launched")
+    g = {label: r["graphed"][1] for label, r in runs.items()}
+    off = g["off"]
+    for label in ("on", "chunked", "chunked spec"):
+        ln = g[label]
+        if not (ln["prefix_hit_rate"] > 0 and ln["cow_copies"] > 0):
+            raise AssertionError(f"share {label}: no prefix hit or no copy-on-write: {ln}")
+        if not ln["prefill_rows"] < off["prefill_rows"]:
+            raise AssertionError(f"share {label}: prefill rows {ln['prefill_rows']} not below "
+                                 f"sharing off's {off['prefill_rows']}")
+    if not g["on"]["held_page_steps"] < off["held_page_steps"]:
+        raise AssertionError(f"share on: held page-steps {g['on']['held_page_steps']} not below "
+                             f"sharing off's {off['held_page_steps']}")
+    most = g["chunked"]["max_prefill_rows_step"]
+    if not most <= SHARE_CHUNK * geom["max_slots"] or not most < g["on"]["max_prefill_rows_step"]:
+        raise AssertionError(f"chunked prefill computed {most} rows in one step "
+                             f"(unchunked {g['on']['max_prefill_rows_step']})")
+    if not max(g["on"]["extend_widths"], default=0) > 98:
+        raise AssertionError(f"no extension over 98 rows: widths {g['on']['extend_widths']}")
+    ext = extension_noise(cfg, model, sched0, prompts)
+    delta = max(bits["max_abs_dlogit"], width_noise, ext)
+    base = runs["off"]["graphed"][0]
+    groups0 = admission_groups(base)
+    partings = []
+    for label in ("on", "chunked", "chunked spec"):
+        reqs = runs[label]["graphed"][0]
+        groups = admission_groups(reqs)
+        for a, b in zip(base, reqs):
+            if a.tokens == b.tokens:
+                continue
+            j = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y)
+            margin, drawn, rank = parting_margin(cfg, model, scheds["off"], prompts, a,
+                                                 groups0[a.rid], j, other=b.tokens[j])
+            other_path = (b.prefix_hit_tokens > 0 or b.prefill_chunks > 0
+                          or groups[b.rid] != groups0[a.rid])
+            partings.append(dict(run=label, rid=a.rid, index=j, margin=margin,
+                                 sampled=a.params.temperature > 0, other_rank=rank,
+                                 extension=b.prefill_chunks > 0, replay_matches=drawn == a.tokens[j],
+                                 near_tie=other_path and drawn == a.tokens[j] and margin <= delta))
+    same = {label: sum(a.tokens == b.tokens for a, b in zip(base, runs[label]["graphed"][0]))
+            for label in ("on", "chunked", "chunked spec")}
+    print(f"share: graphed streams equal to sharing off's: " + ", ".join(
+        f"{k} {v}/{len(base)}" for k, v in same.items()) + f"; near-tie threshold {delta:.3e} "
+        f"(extension path {ext:.3e}, prefill width {width_noise:.3e}, verify "
+        f"{bits['max_abs_dlogit']:.3e}); {len(partings)} parting point(s)" + "".join(
+            f"\n  {p['run']} request {p['rid']} at token {p['index']}: sharing-off margin "
+            f"{p['margin']:.3e} (sampled {p['sampled']}; the other token's rank there "
+            f"{p['other_rank']}), extension {p['extension']}, replay draws the sharing-off token "
+            f"{p['replay_matches']}, near tie {p['near_tie']}" for p in partings), flush=True)
+    bad = [p for p in partings if not p["near_tie"]]
+    if bad:
+        raise AssertionError(f"shared streams part from sharing off's beyond the near-tie rule: "
+                             f"{bad}")
+    for label, r in runs.items():
+        before_after(f"share {label}", r)
+    return {"runs": {k: {mode: ln for mode, (_, ln) in v.items()} for k, v in runs.items()},
+            "identical": same, "near_tie_threshold": delta, "extension_noise": ext,
             "partings": partings, "twins": twins}
 
 
@@ -1531,8 +1926,14 @@ def main() -> int:
 
     k2_rep = next(c for c in k2 if c["case"] == "s=1 window=0" and c["dtype"] == "bfloat16")
     k2_verify = next(c for c in k2 if c["case"] == "verify s=4" and c["dtype"] == "bfloat16")
+    k2_ext = {f"s={c['s']} {c['dtype']}": {k: c[k] for k in (
+        "s", "dtype", "n_splits", "n_tiles", "ms", "plain_ms", "library_ms", "sdpa_only_ms",
+        "bound_ms", "bound_by", "max_abs_err", "rows_bit_equal_s1")}
+        for c in k2 if c["case"].startswith("extension")}
     mixed = served["mixed"]["runs"]
-    paths = {"greedy": served} | {f"mixed {k}": v["graphed"] for k, v in mixed.items()}
+    shared = served["shared"]["runs"]
+    paths = ({"greedy": served} | {f"mixed {k}": v["graphed"] for k, v in mixed.items()}
+             | {f"share {k}": v["graphed"] for k, v in shared.items()})
     by_path = {name: {p: paths[p][name] for p in paths}
                for name in ("hinm_spmm", "paged_decode_attn")}
     for name, counts in by_path.items():
@@ -1546,6 +1947,7 @@ def main() -> int:
              crossover={"rows_max_b": K1_CROSSOVER, "layer_ms_by_B": crossover},
              launches_by_path=by_path["hinm_spmm"],
              prefill=k1_prefill_layer(k1, served["prefill_k1_per_admission"]),
+             extension=layer.pop("extension"),
              **{**layer,
                 "max_abs_err": max([layer["max_abs_err"]] + [c["max_abs_err"] for c in k1]),
                 "max_rel_err": max([layer["max_rel_err"]] + [c["max_rel_err"] for c in k1])},
@@ -1558,6 +1960,7 @@ def main() -> int:
              verify={k: k2_verify[k] for k in ("s", "n_splits", "ms", "plain_ms", "library_ms",
                                                "sdpa_only_ms", "bound_ms", "bound_by",
                                                "max_abs_err", "rows_bit_equal_s1")},
+             extension=k2_ext,
              max_abs_err=max(c["max_abs_err"] for c in k2),
              timed="one decode step of one layer: B=4, s=1, KV=2, G=7, hd=64, page "
                    "16, n_bt 16 with 1-16 pages allocated per slot at random, bf16",
@@ -1589,7 +1992,19 @@ def main() -> int:
                 if r["graphed"]["verify_steps"] else ""))
     print(f"live-pool step (eager): wall {prof['wall_ms']:.2f} ms, host enqueue "
           f"{prof['host_ms']:.2f} ms, device {prof['device_ms']:.3f} ms")
-    twins = [served["twins"]] + list(served["mixed"]["twins"].values())
+    for label, r in shared.items():
+        gr = r["graphed"]
+        print(f"serve share workload, {label}: " + "; ".join(
+            f"{mode} {r[mode]['decode_tok_s']:.1f} decode tok/s, p50 step "
+            f"{r[mode]['p50_step_ms']:.2f} ms, p50 TTFT {r[mode]['p50_ttft_ms']:.1f} ms, idle "
+            f"{r[mode]['idle_share']:.1%}" for mode in ("eager", "graphed"))
+            + f"; prefill rows {gr['prefill_rows']}, hit rate {gr['prefix_hit_rate']:.3f}, "
+            f"extension replays {gr['extend_replays']} ({gr['extend_device_ms']:.3f} device ms), "
+            f"page-steps live {gr['live_page_steps']} held {gr['held_page_steps']}, most prefill "
+            f"rows in a step {gr['max_prefill_rows_step']}, extension widths "
+            f"{gr['extend_widths']}")
+    twins = ([served["twins"]] + list(served["mixed"]["twins"].values())
+             + list(served["shared"]["twins"].values()))
     print(f"graphs: graphed streams equal to eager {sum(t['identical'] for t in twins)}/"
           f"{sum(t['requests'] for t in twins)} requests, "
           f"{sum(len(t['partings']) for t in twins)} near-tie parting(s); captured verify "
@@ -1597,6 +2012,9 @@ def main() -> int:
     print(f"spec: verify vs decode bit-equal {prof['spec_bits']['bit_equal']}; streams equal "
           f"to plain {served['mixed']['identical']}; {len(served['mixed']['partings'])} "
           f"near-tie parting(s); sampler on CUDA equal to CPU {prng_check['draws_equal']}")
+    print(f"share: streams equal to sharing off {served['shared']['identical']}; "
+          f"{len(served['shared']['partings'])} near-tie parting(s) (threshold "
+          f"{served['shared']['near_tie_threshold']:.3e})")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

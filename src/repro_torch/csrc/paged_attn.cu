@@ -41,6 +41,16 @@
 //     one output row over a share of the keys, reduced by shuffles.  With one
 //     split the block writes the output; otherwise it writes (m, l, acc) to
 //     an f32 workspace the wrapper allocates.
+//   * row tiles: where a split's Gs query rows are too many for one block
+//     (an extension prefill writes up to hundreds of rows per slot: they
+//     may not fit shared memory, and few blocks of many rows run slower
+//     than many of few: 2.3x at s 64 between 448- and 56-row tiles), the
+//     rows are cut into tiles of tile_rows and the
+//     grid's x axis runs over (split, tile) pairs; each block stages its
+//     split's K and V and scores its tile's rows only.  A row's arithmetic does not
+//     depend on its tile, so a tiled call gives each row the bits of the
+//     untiled call at the same splits; where Gs fits one tile
+//     (tile_rows = Gs) the launch is exactly the untiled one.
 //   * combine_kernel (only with more than one split): one warp per output
 //     row: M = max m_i, w_i = exp(m_i - M), l = sum w_i l_i,
 //     acc = sum w_i acc_i, out = acc / max(l, 1e-30) -- exact for every row,
@@ -191,40 +201,46 @@ cudaError_t launch_pdl(void (*kernel)(P...), dim3 grid, int smem, cudaStream_t s
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// Shared memory of split_kernel for splits of up to max_pages pages, K and
-// V rows staged at a stride of rs = hd + VE elements; the wrapper's
-// split_count budgets against the same sum with VE at its 16 bytes.
-size_t smem_bytes(int Gs, int hd, int rs, int page, int max_pages, int isz) {
+// Shared memory of split_kernel for tiles of Gt query rows and splits of
+// up to max_pages pages, K and V rows staged at a stride of rs = hd + VE
+// elements; the wrapper's plan budgets against the same sum with VE at its
+// 16 bytes.
+size_t smem_bytes(int Gt, int hd, int rs, int page, int max_pages, int isz) {
   const size_t keys = (size_t)max_pages * page;
-  const size_t head = sizeof(float) * ((size_t)Gs * hd + (size_t)Gs * keys + 2 * (size_t)Gs) +
-                      sizeof(int) * (keys + Gs + max_pages);
+  const size_t head = sizeof(float) * ((size_t)Gt * hd + (size_t)Gt * keys + 2 * (size_t)Gt) +
+                      sizeof(int) * (keys + Gt + max_pages);
   return ((head + 15) & ~(size_t)15) + 2 * keys * rs * isz;
 }
 
-// One block per (split, KV head, slot).  VE: elements of a row chunk, 16
-// bytes' worth where rows are 16-byte aligned, else 1.
+// One block per (split, row tile, KV head, slot); blockIdx.x is split +
+// n_splits * tile.  VE: elements of a row chunk, 16 bytes' worth where rows
+// are 16-byte aligned, else 1.
 template <typename T, int VE>
 __global__ void __launch_bounds__(THREADS)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
              const T* __restrict__ v_pool, const int* __restrict__ kpos,
              const int* __restrict__ bt, const int* __restrict__ q_pos,
              T* __restrict__ out, float* __restrict__ ws, int S, int H, int KV, int hd,
-             int page, int n_bt, int n_splits, int max_pages, int window, float scale) {
+             int page, int n_bt, int n_splits, int tile_rows, int max_pages, int window,
+             float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, B = gridDim.z;
+  const int split = blockIdx.x % n_splits, tile = blockIdx.x / n_splits;
+  const int kvh = blockIdx.y, b = blockIdx.z, B = gridDim.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int G = H / KV, Gs = S * G, C = hd / VE;  // C: chunks of a row
+  // the tile's rows: [rt, rt + Gt) of the Gs; r below is tile-local
+  const int rt = tile * tile_rows, Gt = min(tile_rows, Gs - rt);
   const int e0 = (int)((long long)split * n_bt / n_splits);
   const int np = (int)((long long)(split + 1) * n_bt / n_splits) - e0;
   const int nk = np * page, max_keys = max_pages * page;
 
-  float* q_s = reinterpret_cast<float*>(smem);  // Gs x hd, pre-scaled
-  float* sc = q_s + Gs * hd;                    // Gs x nk scores, then p
-  float* m_s = sc + Gs * max_keys;              // Gs
-  float* l_s = m_s + Gs;                        // Gs
-  int* kp_s = reinterpret_cast<int*>(l_s + Gs); // nk
-  int* qp_s = kp_s + max_keys;                  // Gs
-  int* pg_s = qp_s + Gs;                        // np
+  float* q_s = reinterpret_cast<float*>(smem);     // Gt x hd, pre-scaled
+  float* sc = q_s + tile_rows * hd;                // Gt x nk scores, then p
+  float* m_s = sc + tile_rows * max_keys;          // Gt
+  float* l_s = m_s + tile_rows;                    // Gt
+  int* kp_s = reinterpret_cast<int*>(l_s + tile_rows);  // nk
+  int* qp_s = kp_s + max_keys;                     // Gt
+  int* pg_s = qp_s + tile_rows;                    // np
   const size_t head = reinterpret_cast<unsigned char*>(pg_s + max_pages) - smem;
   // K and V rows one 16-byte chunk (VE elements) apart beyond hd, so the
   // rows p @ V reads at once start on different banks
@@ -236,15 +252,15 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   pdl_trigger();
   // the split's table entries, q (pre-scaled f32) and each row's position
   for (int i = tid; i < np; i += THREADS) pg_s[i] = bt[(size_t)b * n_bt + e0 + i];
-  for (int i = tid; i < Gs * C; i += THREADS) {
-    const int r = i / C, ch = i - r * C, si = r / G, g = r - si * G;
+  for (int i = tid; i < Gt * C; i += THREADS) {
+    const int r = i / C, ch = i - r * C, si = (rt + r) / G, g = rt + r - si * G;
     float f[VE];
     load_vec<T, VE>(q + (((size_t)b * S + si) * H + kvh * G + g) * hd + ch * VE, f);
 #pragma unroll
     for (int j = 0; j < VE; ++j) f[j] *= scale;
     store_f32<VE>(q_s + r * hd + ch * VE, f);
   }
-  for (int r = tid; r < Gs; r += THREADS) qp_s[r] = q_pos[(size_t)b * S + r / G];
+  for (int r = tid; r < Gt; r += THREADS) qp_s[r] = q_pos[(size_t)b * S + (rt + r) / G];
   __syncthreads();
   // every K, V and kpos row of the split's pages in flight at once; one wait
   for (int i = tid; i < nk * C; i += THREADS) {
@@ -270,7 +286,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const bool valid = c < nk;
     const T* kr = k_s + (size_t)(valid ? c : 0) * rs;
     const int kp = valid ? kp_s[c] : 0;
-    for (int r0 = 0; r0 < Gs; r0 += ROWS) {
+    for (int r0 = 0; r0 < Gt; r0 += ROWS) {
       float s[ROWS];
 #pragma unroll
       for (int j = 0; j < ROWS; ++j) s[j] = 0.f;
@@ -279,7 +295,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         load_vec<T, VE>(kr + ch * VE, kf);
 #pragma unroll
         for (int j = 0; j < ROWS; ++j) {
-          if (r0 + j < Gs) {
+          if (r0 + j < Gt) {
             float qf[VE];
             load_f32<VE>(q_s + (r0 + j) * hd + ch * VE, qf);
 #pragma unroll
@@ -296,7 +312,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         if (j == sub) mine = s[j];
       }
       const int r = r0 + sub;
-      if (valid && r < Gs) {
+      if (valid && r < Gt) {
         const int qp = qp_s[r];
         bool ok = kp <= qp;
         if (window > 0) ok = ok && (kp > qp - window);
@@ -308,22 +324,23 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   // softmax statistics: a warp takes ROWS_W rows at once, lanes over the
   // keys, max and sum by shuffles
-  const size_t part = (((size_t)b * KV + kvh) * n_splits + split) * Gs;  // this split's rows
-  const size_t rows = (size_t)B * KV * n_splits * Gs;                    // all partial rows
-  for (int r0 = warp * ROWS_W; r0 < Gs; r0 += WARPS * ROWS_W) {
+  // this split's partial rows from the tile's first
+  const size_t part = (((size_t)b * KV + kvh) * n_splits + split) * Gs + rt;
+  const size_t rows = (size_t)B * KV * n_splits * Gs;  // all partial rows
+  for (int r0 = warp * ROWS_W; r0 < Gt; r0 += WARPS * ROWS_W) {
     float mx[ROWS_W], sum[ROWS_W];
 #pragma unroll
     for (int j = 0; j < ROWS_W; ++j) {
       mx[j] = NEG_INF;
       sum[j] = 0.f;
-      if (r0 + j < Gs)
+      if (r0 + j < Gt)
         for (int c = lane; c < nk; c += 32) mx[j] = fmaxf(mx[j], sc[(r0 + j) * nk + c]);
     }
 #pragma unroll
     for (int j = 0; j < ROWS_W; ++j) mx[j] = warp_max(mx[j]);
 #pragma unroll
     for (int j = 0; j < ROWS_W; ++j) {
-      if (r0 + j < Gs) {
+      if (r0 + j < Gt) {
         float* sr = sc + (r0 + j) * nk;
         for (int c = lane; c < nk; c += 32) {
           const float e = expf(sr[c] - mx[j]);
@@ -340,7 +357,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       for (int j = 1; j < ROWS_W; ++j)
         if (j == lane) m = mx[j], l = sum[j];
       const int r = r0 + lane;
-      if (r < Gs) {
+      if (r < Gt) {
         m_s[r] = m;
         l_s[r] = l;
         if (n_splits > 1) {
@@ -357,7 +374,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   // kg comes from one query's G rows, not from Gs: each output row is then
   // summed in the same order whatever S is, so a speculative verify's row
   // i is bitwise the i-th single-row decode step's (same splits given)
-  const int pairs = Gs * C;
+  const int pairs = Gt * C;
   int kg = 1;
   while (kg < 32 && 2 * kg * G * C <= THREADS) kg *= 2;
   for (int t0 = 0; t0 < pairs * kg; t0 += THREADS) {
@@ -387,7 +404,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         const float den = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
         for (int j = 0; j < VE; ++j) acc[j] = acc[j] / den;
-        const int si = r / G, g = r - si * G;
+        const int si = (rt + r) / G, g = rt + r - si * G;
         store_vec<T, VE>(out + (((size_t)b * S + si) * H + kvh * G + g) * hd + ch * VE, acc);
       } else {
         store_f32<VE>(ws + (part + r) * hd + ch * VE, acc);
@@ -446,11 +463,12 @@ combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int B, int S, 
 template <typename T, int VE>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const void* kpos,
                    const void* bt, const void* q_pos, void* out, void* ws, int B, int S,
-                   int H, int KV, int hd, int page, int n_bt, int n_splits, int window,
-                   float scale, cudaStream_t stream) {
+                   int H, int KV, int hd, int page, int n_bt, int n_splits, int tile_rows,
+                   int window, float scale, cudaStream_t stream) {
   const int Gs = S * (H / KV);
+  const int n_tiles = (Gs + tile_rows - 1) / tile_rows;
   const int max_pages = (n_bt + n_splits - 1) / n_splits;
-  const size_t smem = smem_bytes(Gs, hd, hd + VE, page, max_pages, (int)sizeof(T));
+  const size_t smem = smem_bytes(tile_rows, hd, hd + VE, page, max_pages, (int)sizeof(T));
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   auto kern = split_kernel<T, VE>;
   if (smem > 48 * 1024) {
@@ -459,11 +477,11 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const 
     if (e != cudaSuccess) return e;
   }
   const cudaError_t e = launch_pdl(
-      kern, dim3(n_splits, KV, B), (int)smem, stream, static_cast<const T*>(q),
+      kern, dim3(n_splits * n_tiles, KV, B), (int)smem, stream, static_cast<const T*>(q),
       static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
       static_cast<const int*>(kpos), static_cast<const int*>(bt),
       static_cast<const int*>(q_pos), static_cast<T*>(out), static_cast<float*>(ws), S, H,
-      KV, hd, page, n_bt, n_splits, max_pages, window, scale);
+      KV, hd, page, n_bt, n_splits, tile_rows, max_pages, window, scale);
   if (e != cudaSuccess || n_splits == 1) return e;
   const size_t csmem = sizeof(float) * 2 * WARPS * n_splits;
   if (csmem > SMEM_MAX) return cudaErrorInvalidValue;
@@ -484,16 +502,18 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 // dtype: 0 = float32, 1 = bfloat16 (q, the pools and out share it).  ws:
 // f32 workspace of B*KV*n_splits*Gs*(hd + 2) floats, unused (may be null)
 // when n_splits is 1.  Split i of n_splits covers table entries
-// [i*n_bt/n_splits, (i+1)*n_bt/n_splits).  Returns the cudaError_t of the
-// launches; the wrapper raises when it is not 0.
+// [i*n_bt/n_splits, (i+1)*n_bt/n_splits); tile t of the S*(H/KV) query rows
+// of a (slot, KV head) covers rows [t*tile_rows, (t+1)*tile_rows).  Returns
+// the cudaError_t of the launches; the wrapper raises when it is not 0.
 extern "C" int paged_attn_launch(const void* q, const void* k_pool, const void* v_pool,
                                  const void* kpos, const void* bt, const void* q_pos,
                                  void* out, void* ws, int B, int S, int H, int KV, int hd,
-                                 int page, int n_bt, int n_splits, int window, float scale,
-                                 int dtype, void* stream) {
+                                 int page, int n_bt, int n_splits, int tile_rows, int window,
+                                 float scale, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || hd <= 0 || page <= 0 || n_bt <= 0 ||
       n_splits < 1 || n_splits > n_bt || (n_splits > 1 && ws == nullptr) ||
-      B > 65535 || KV > 65535)
+      tile_rows < 1 || tile_rows > S * (H / KV) || B > 65535 || KV > 65535 ||
+      (long long)n_splits * ((S * (H / KV) + tile_rows - 1) / tile_rows) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int isz = dtype == 1 ? 2 : 4;
@@ -502,13 +522,13 @@ extern "C" int paged_attn_launch(const void* q, const void* k_pool, const void* 
   cudaError_t e;
   if (dtype == 1)
     e = vec ? launch<__nv_bfloat16, 8>(q, k_pool, v_pool, kpos, bt, q_pos, out, ws, B, S, H,
-                                       KV, hd, page, n_bt, n_splits, window, scale, s)
+                                       KV, hd, page, n_bt, n_splits, tile_rows, window, scale, s)
             : launch<__nv_bfloat16, 1>(q, k_pool, v_pool, kpos, bt, q_pos, out, ws, B, S, H,
-                                       KV, hd, page, n_bt, n_splits, window, scale, s);
+                                       KV, hd, page, n_bt, n_splits, tile_rows, window, scale, s);
   else
     e = vec ? launch<float, 4>(q, k_pool, v_pool, kpos, bt, q_pos, out, ws, B, S, H, KV, hd,
-                               page, n_bt, n_splits, window, scale, s)
+                               page, n_bt, n_splits, tile_rows, window, scale, s)
             : launch<float, 1>(q, k_pool, v_pool, kpos, bt, q_pos, out, ws, B, S, H, KV, hd,
-                               page, n_bt, n_splits, window, scale, s);
+                               page, n_bt, n_splits, tile_rows, window, scale, s);
   return (int)e;
 }

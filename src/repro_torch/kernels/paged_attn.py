@@ -8,13 +8,18 @@ slot) with all of its pages in flight at once, and a second small kernel
 combines the splits' (m, l, acc) partials exactly.  It is bound by latency
 (a launch and two dependent DRAM round trips), not by its few hundred KB;
 the first design lost to it by walking the table page by page in 8
-blocks.  `plan_splits` picks the number of splits from the shapes alone,
-so a captured CUDA graph stays valid whatever the table holds, and gives
-an s-row speculative verify the splits of single-row decode: with the
-kernel's per-row order fixed by one query's rows, verify row i is then
-bitwise decode step i.  The plain
-version, `paged_decode_attn_ref`, is exactly the reference the JAX tests
-hold the TPU kernel to: `paging.gather_view` + `layers._attn_chunked`.
+blocks.  `plan` picks the number of splits and the query rows a block
+holds from the shapes alone, so a captured CUDA graph stays valid whatever
+the table holds.  Every call of s rows per slot takes the splits of
+single-row decode; with the kernel's per-row order fixed by one query's
+rows, row i of a speculative verify is then bitwise decode step i.  Where
+a split's s * G query rows exceed TILE_ROWS or one block's shared memory
+(an extension prefill of up to hundreds of rows per slot), they are cut
+into row tiles, one more grid axis; each row keeps the bits it has
+untiled.
+The plain version, `paged_decode_attn_ref`, is exactly the reference the
+JAX tests hold the TPU kernel to: `paging.gather_view` +
+`layers._attn_chunked`.
 """
 from __future__ import annotations
 
@@ -31,13 +36,16 @@ _fn = None
 SMEM_MAX = 232_448     # shared memory one block may use on the H100 (227 KB)
 TARGET_BLOCKS = 64     # blocks a call aims at (chip_smoke's K2 split sweep)
 MAX_SPLIT_PAGES = 8    # table entries one block takes at most
+# query rows one block takes at most where a call has more (an extension):
+# more blocks beat fuller ones (chip_smoke's K2 tile sweep at s 16, 64, 256)
+TILE_ROWS = 56
 
 
 def _launcher():
     global _fn
     if _fn is None:
         fn = build.load("paged_attn").paged_attn_launch
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -45,9 +53,9 @@ def _launcher():
 
 
 def _smem_bytes(gs: int, hd: int, page: int, pages: int, itemsize: int) -> int:
-    """Shared memory of the split kernel for splits of up to `pages` pages:
-    csrc/paged_attn.cu:smem_bytes with K and V rows padded by its largest
-    pad, 16 bytes."""
+    """Shared memory of the split kernel for `gs` query rows a block and
+    splits of up to `pages` pages: csrc/paged_attn.cu:smem_bytes with K and
+    V rows padded by its largest pad, 16 bytes."""
     keys = pages * page
     head = 4 * (gs * hd + gs * keys + 2 * gs) + 4 * (keys + gs + pages)
     return -(-head // 16) * 16 + 2 * keys * (hd * itemsize + 16)
@@ -71,17 +79,31 @@ def split_count(b: int, kvh: int, n_bt: int, gs: int, page: int, hd: int,
 
 
 @functools.lru_cache(maxsize=None)
-def plan_splits(b: int, kvh: int, n_bt: int, g: int, s: int, page: int, hd: int,
-                itemsize: int) -> int:
-    """The split count a call of s query rows per slot runs: the s = 1
-    plan's (`split_count` at g rows), so that a speculative verify's row i
-    is summed over the same splits, in the same order, as the i-th
-    single-row decode step; the s-row plan only where the s = 1 plan's
-    splits do not fit shared memory at s * g rows."""
+def plan(b: int, kvh: int, n_bt: int, g: int, s: int, page: int, hd: int,
+         itemsize: int) -> tuple[int, int]:
+    """(splits, query rows a block holds) of a call of s query rows per
+    slot.  The splits are the s = 1 plan's (`split_count` at g rows), so
+    that row i of any call is summed over the same splits, in the same
+    order, as a single-row call at its position (a speculative verify's
+    row i is decode step i).  All s * g rows of a (slot, KV head) in one
+    block where they are at most TILE_ROWS and fit in shared memory beside
+    the largest split's pages, else row tiles (`_tile_rows`)."""
     n = split_count(b, kvh, n_bt, g, page, hd, itemsize)
-    if s == 1 or _smem_bytes(s * g, hd, page, -(-n_bt // n), itemsize) <= SMEM_MAX:
-        return n
-    return split_count(b, kvh, n_bt, s * g, page, hd, itemsize)
+    return n, _tile_rows(s * g, hd, page, -(-n_bt // n), itemsize)
+
+
+def _tile_rows(gs: int, hd: int, page: int, pages: int, itemsize: int) -> int:
+    """Query rows a block holds beside `pages` pages: all `gs` where they
+    are at most TILE_ROWS and fit, else the fewest tiles of at most
+    TILE_ROWS that fit, as even as whole 8-row score groups allow; 0 where
+    not one row fits."""
+    fit = min(gs, TILE_ROWS)
+    while fit and _smem_bytes(fit, hd, page, pages, itemsize) > SMEM_MAX:
+        fit -= 1
+    if fit in (0, gs):
+        return fit
+    per_tile = -(-gs // -(-gs // fit))
+    return min(fit, -(-per_tile // 8) * 8)
 
 
 def split_ranges(n_bt: int, n_splits: int) -> list[tuple[int, int]]:
@@ -114,18 +136,22 @@ def paged_decode_attn(
     """Block-table-resolved decode attention through the CUDA kernel (the
     split kernel, then the combine where there is more than one split).
     Returns (B, s, H, hd) in q's dtype; counts one launch per call in
-    ``paged_decode_attn.launches`` and records the split count that
-    `plan_splits` picked in ``paged_decode_attn.last_splits``."""
-    out, paged_decode_attn.last_splits = _launch(q, k_pool, v_pool, kpos_pool, bt,
-                                                 q_pos, window)
+    ``paged_decode_attn.launches`` and records the split count and the row
+    tiles that `plan` picked in ``paged_decode_attn.last_splits`` and
+    ``.last_tiles``."""
+    out, paged_decode_attn.last_splits, paged_decode_attn.last_tiles = _launch(
+        q, k_pool, v_pool, kpos_pool, bt, q_pos, window)
     paged_decode_attn.launches += 1
     return out
 
 
-def _launch(q, k_pool, v_pool, kpos_pool, bt, q_pos, window, n_splits=None):
+def _launch(q, k_pool, v_pool, kpos_pool, bt, q_pos, window, n_splits=None,
+            tile_rows=None):
     """Check the arguments, allocate the workspace and launch the kernels
-    with `n_splits` splits (`plan_splits`'s plan where None).  Returns the
-    output and the split count it ran."""
+    with `n_splits` splits (`plan`'s where None) and `tile_rows` query rows
+    a block (`_tile_rows` for the splits where None; chip_smoke's sweeps
+    force both).  Returns the output, the split count and the row-tile
+    count it ran."""
     b, s, h, hd = q.shape
     n_pages, page, kvh, hd2 = k_pool.shape
     n_bt = bt.shape[-1]
@@ -152,9 +178,19 @@ def _launch(q, k_pool, v_pool, kpos_pool, bt, q_pos, window, n_splits=None):
             f"{tuple(bt.shape)}, q_pos {tuple(q_pos.shape)}")
     gs = s * (h // kvh)
     if n_splits is None:
-        n_splits = plan_splits(b, kvh, n_bt, h // kvh, s, page, hd, q.element_size())
+        n_splits, rows = plan(b, kvh, n_bt, h // kvh, s, page, hd, q.element_size())
     elif not 1 <= n_splits <= n_bt:
         raise ValueError(f"paged_decode_attn: n_splits {n_splits} outside [1, n_bt {n_bt}]")
+    else:
+        rows = _tile_rows(gs, hd, page, -(-n_bt // n_splits), q.element_size())
+        if not rows:
+            raise ValueError(f"paged_decode_attn: splits of {-(-n_bt // n_splits)} pages "
+                             "do not fit a block's shared memory")
+    if tile_rows is not None:
+        if not 1 <= tile_rows <= gs or _smem_bytes(tile_rows, hd, page, -(-n_bt // n_splits),
+                                                   q.element_size()) > SMEM_MAX:
+            raise ValueError(f"paged_decode_attn: {tile_rows} rows a block do not fit")
+        rows = tile_rows
     out = torch.empty_like(q)
     # the splits' (acc, m, l) partials; none with one split
     ws = (torch.empty(b * kvh * n_splits * gs * (hd + 2), dtype=torch.float32,
@@ -163,11 +199,12 @@ def _launch(q, k_pool, v_pool, kpos_pool, bt, q_pos, window, n_splits=None):
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), kpos_pool.data_ptr(),
         bt.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), b, s, h, kvh, hd, page, n_bt,
-        n_splits, int(window), hd ** -0.5, _DTYPES[q.dtype],
+        n_splits, rows, int(window), hd ** -0.5, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "paged_decode_attn")
-    return out, n_splits
+    return out, n_splits, -(-gs // rows)
 
 
 paged_decode_attn.launches = 0
 paged_decode_attn.last_splits = None
+paged_decode_attn.last_tiles = None

@@ -15,6 +15,9 @@ Two physical pages are reserved:
 
 Freed pages keep stale K/V but their ``kpos`` rows are reset to the
 sentinel on release, so a recycled page never leaks rows into a view.
+With prefix sharing (serve/prefix) a physical page can appear in several
+block tables at once; the kpos sweep then belongs to the refcount layer
+(serve/kv): only a page whose last reference drops is swept.
 
 Where the reference returns updated arrays (buffers donated under jit),
 these helpers write the pool in place and say so.
@@ -121,6 +124,41 @@ def release_attn(pool: dict, page_ids, slot: int) -> dict:
     pool["pos"][:, slot] = 0
     pool["bt"][:, slot] = SENTINEL_PAGE
     pool["alloc"][:, slot] = 0
+    return pool
+
+
+def map_attn(pool: dict, bt_row, n_alloc: int, pos: int, slot: int) -> dict:
+    """Map a slot onto already-written physical pages, in place, with no
+    scatter: install its block-table row and allocation count and set
+    ``pos`` to the rows the mapped prefix already holds (prefix sharing:
+    the shared pages carry another owner's rows, identical for an
+    identical token prefix at identical positions).  The suffix is written
+    later by extension prefill through the multi-token decode path."""
+    pool["pos"][:, slot] = pos
+    pool["bt"][:, slot] = bt_row
+    pool["alloc"][:, slot] = n_alloc
+    return pool
+
+
+def copy_page(pool: dict, dst: int, src: int, keep_rows: int) -> dict:
+    """Copy-on-write a divergent tail page, in place: physical page
+    ``src``'s K/V rows are copied to ``dst`` and only its first
+    ``keep_rows`` kpos rows come along; the donor's rows past the
+    divergence land as the sentinel (masked like unwritten rows, and
+    extension prefill overwrites them)."""
+    for name in ("k", "v"):
+        pool[name][:, dst] = pool[name][:, src]
+    kpos = pool["kpos"]
+    kpos[:, dst, :keep_rows] = kpos[:, src, :keep_rows]
+    kpos[:, dst, keep_rows:] = KPOS_SENTINEL
+    return pool
+
+
+def sweep_pages(pool: dict, page_ids) -> dict:
+    """Reset ``page_ids``' kpos rows to the sentinel, in place, without
+    touching any slot's table (a prefix-cache eviction frees pages no
+    block table references; SCRATCH_PAGE padding is never read)."""
+    pool["kpos"].index_fill_(1, page_ids.long(), KPOS_SENTINEL)
     return pool
 
 

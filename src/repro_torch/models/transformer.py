@@ -21,6 +21,10 @@ from repro_torch.models.module import PruneSpec
 # pure-attention prefill: padded rows are exactly masked (sentinel kpos),
 # so prompts can be bucketed to power-of-two lengths (serve admission)
 BUCKETED_PREFILL = True
+# K/V rows are pure per-(token, position) projections here: an identical
+# token prefix at identical positions caches identical rows, so physical
+# pages can be refcount-shared across slots (serve/prefix)
+PREFIX_SHARE = True
 
 
 class Block(nn.Module):
@@ -131,6 +135,22 @@ def paged_release(cfg, pool, slot, page_ids):
     return paging.release_attn(pool, page_ids, slot)
 
 
+def paged_map(cfg, pool, slot, bt_row, n_alloc, pos):
+    """Map `slot` onto already-written pages (prefix sharing), in place:
+    block table and counters only, no K/V moves."""
+    return paging.map_attn(pool, bt_row, n_alloc, pos, slot)
+
+
+def paged_copy_page(cfg, pool, dst, src, keep_rows):
+    """Copy-on-write the divergent tail page (first `keep_rows` rows)."""
+    return paging.copy_page(pool, dst, src, keep_rows)
+
+
+def paged_sweep(cfg, pool, page_ids):
+    """kpos-sentinel sweep of unreferenced pages (prefix-cache eviction)."""
+    return paging.sweep_pages(pool, page_ids)
+
+
 def prefill(model, cfg, tokens, cache, n_rows=None, backend: str = "auto"):
     """Fill the stripe cache in place; returns last-token pre-logits (B, D).
 
@@ -210,6 +230,26 @@ def verify_step(model, cfg, tokens, cache, backend: str = "auto"):
                     variant=_decode_variant(model, b, x))
     x = L.norm(model.ln_f, x, cfg)
     return logits_fn(model, x), None
+
+
+def extend_step(model, cfg, tokens, cache, backend: str = "auto"):
+    """Extension prefill: forward ``tokens (B, C)`` from each slot's current
+    position, writing all C cache rows in place through the multi-token
+    decode write path `verify_step` takes.  Returns (pre-logits hidden
+    states (B, C, D), undo None): the caller projects only the rows it
+    samples from, and chunked or suffix prefill sweeps co-resident lanes'
+    junk rows with `cache_rollback`, as after a rejected speculation.
+
+    Unlike the verify, the packed projections run the K1 variant the
+    dispatch picks for B * C rows (prefill's work, "mma" in bf16), so a
+    row's bits depend on the extension's width, as a group prefill's do
+    on its group's."""
+    b, s = tokens.shape
+    x = M.embed(model.embed, tokens)
+    positions = (cache["pos"][0][:, None]
+                 + torch.arange(s, dtype=torch.int32, device=x.device)[None, :])
+    x = _run_blocks(model, cfg, x, positions, cache, backend, spec=True)
+    return L.norm(model.ln_f, x, cfg), None
 
 
 def cache_rollback(cfg, cache, undo, pos0, keep, n_written):

@@ -6,6 +6,7 @@
   make_cache(cfg, batch, max_seq, ...)    -> decode cache
   prefill / decode_step                   -> serving
   verify_step / cache_rollback / cache_position -> speculative decoding
+  extend_step / paged_map / paged_copy_page / paged_sweep -> prefix sharing
   pack_params / unpack_params             -> serve-time weight format
   hinm_plan(cfg) / perm_graph(cfg)        -> prune specs / their PermGraph
 """
@@ -65,6 +66,14 @@ def verify_step(model, cfg, tokens, cache, backend: str = "auto"):
     return model_for(cfg).verify_step(model, cfg, tokens, cache, backend)
 
 
+def extend_step(model, cfg, tokens, cache, backend: str = "auto"):
+    """Extension prefill (chunked admission, shared-prefix suffix): write
+    ``tokens (B, C)`` from each slot's position through the multi-token
+    decode path, in place.  Returns (pre-logits hidden (B, C, D), undo):
+    verify's twin without the vocab projection."""
+    return model_for(cfg).extend_step(model, cfg, tokens, cache, backend)
+
+
 def cache_rollback(cfg, cache, undo, pos0, keep, n_written):
     """Commit/rollback after a verify, in place: keep `keep (B,)` of the
     `n_written` speculative rows per slot and rewind the position counters
@@ -93,6 +102,31 @@ def paged_insert(cfg, pool, stripe, slot, row, scatter_ids, bt_row, n_alloc):
 
 def paged_release(cfg, pool, slot, page_ids):
     return model_for(cfg).paged_release(cfg, pool, slot, page_ids)
+
+
+def supports_prefix_share(cfg) -> bool:
+    """Whether identical token prefixes cache identical K/V rows that other
+    slots may map refcount-shared (serve/prefix): pure-attention stacks,
+    not windowed rings (a wrapped ring reuses page rows in place)."""
+    return getattr(model_for(cfg), "PREFIX_SHARE", False) and not cfg.window
+
+
+def paged_map(cfg, pool, slot, bt_row, n_alloc, pos):
+    """Map `slot` onto already-written physical pages (prefix sharing):
+    installs `bt_row` / `n_alloc` and sets pos, in place; no K/V moves."""
+    return model_for(cfg).paged_map(cfg, pool, slot, bt_row, n_alloc, pos)
+
+
+def paged_copy_page(cfg, pool, dst, src, keep_rows):
+    """Copy-on-write a divergent tail page, in place: K/V of `src` into
+    `dst`, kpos rows past `keep_rows` landing as the sentinel."""
+    return model_for(cfg).paged_copy_page(cfg, pool, dst, src, keep_rows)
+
+
+def paged_sweep(cfg, pool, page_ids):
+    """Sweep unreferenced pages' kpos rows to the sentinel, in place,
+    without touching any slot's table (prefix-cache eviction)."""
+    return model_for(cfg).paged_sweep(cfg, pool, page_ids)
 
 
 def hinm_plan(cfg):

@@ -5,7 +5,8 @@
 in, a (B, max_new_tokens) token matrix out — and runs on `Scheduler`:
 every prompt becomes a `Request` and the batch becomes a slot pool of
 width B.  `temperature`, `top_k` and `top_p` apply to every prompt (0 =
-greedy); `spec` turns on speculative decoding (`serve/spec`).
+greedy); `spec` turns on speculative decoding (`serve/spec`);
+`prefix_share` and `prefill_chunk` go to the scheduler as they are.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ class ServeEngine:
     def __init__(self, cfg, params, max_seq: int = 512, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 0.0, decode_chunk: int = 8,
                  page: int | None = 64, n_pages: int | str | None = "auto",
-                 spec=None, packed: str = "auto", device="cuda"):
+                 spec=None, packed: str = "auto", prefix_share: bool | str = "auto",
+                 prefill_chunk: int | None = None, device="cuda"):
         self.cfg = cfg
         self.params = params
         self.packed = packed
@@ -36,6 +38,8 @@ class ServeEngine:
         self.spec = spec
         self.page = page
         self.n_pages = n_pages
+        self.prefix_share = prefix_share
+        self.prefill_chunk = prefill_chunk
         self.device = resolve_device(device)
         self._sched: Scheduler | None = None
 
@@ -45,6 +49,7 @@ class ServeEngine:
                 self.cfg, self.params, max_slots=batch, max_seq=self.max_seq,
                 decode_chunk=self.decode_chunk, rng_seed=rng_seed, page=self.page,
                 n_pages=self.n_pages, spec=self.spec, packed=self.packed,
+                prefix_share=self.prefix_share, prefill_chunk=self.prefill_chunk,
                 device=self.device)
         else:
             self._sched.reset(rng_seed)

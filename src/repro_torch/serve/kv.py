@@ -4,12 +4,19 @@ paged pool and stripe mode, single device.
 Paged mode: each cache leaf that would hold one ``max_seq`` stripe per
 slot is one shared physical page buffer plus a per-slot block table.
 Pages flow through a host-side free list; a slot holds
-``ceil(min(prompt + max_new, view) / page)`` pages.  Page ownership is
-counted per page (a slot's table entry holds one reference; sharing waits
-for the prefix-sharing slice), and the free list holds exactly the pages
-with no reference: ``n_free_pages + n_referenced_pages == n_alloc_pages``
-at all times.  Releasing a slot sweeps its freed pages' ``kpos`` rows to
-the sentinel, so a recycled page never leaks rows into a new lane.
+``ceil(min(prompt + max_new, view) / page)`` pages.
+
+Page ownership is refcounted (prefix sharing, serve/prefix): a physical
+page may sit in several slots' block tables at once, and the prefix index
+may retain it after every mapping slot released.  A slot's table entry and
+the index's retention each hold one reference; the free list holds
+exactly the pages with none, so ``n_free_pages + n_referenced_pages ==
+n_alloc_pages`` at all times.  A page's ``kpos`` rows are swept to the
+sentinel when its last reference drops, not when one owner releases it
+(a co-owner may still attend to them), so a recycled page never leaks
+rows into a new lane.  ``map_slot`` installs shared pages into a new
+slot's table with no K/V movement and copies only a divergent tail page
+(copy-on-write); ``deref_pages`` is the index's retention-drop hook.
 
 ``n_pages``: an int is the allocatable page count; ``"auto"`` provisions
 for ~half-view average occupancy, floored at one full view; ``None``
@@ -21,7 +28,8 @@ The pool is updated in place where the reference donated its buffers,
 and `reset_all` fills the same storage: the scheduler's captured CUDA
 graphs hold the leaves' addresses.  Host-built tables reach the device
 through pinned memory (`device.to_device`), so admission and release never
-wait for a decode chunk in flight.
+wait for a decode chunk in flight; mapping, copy-on-write and sweeps are
+eager writes on the one stream, ordered after whatever is in flight.
 ``slot_len`` mirrors each slot's actual cache rows; ``slot_capacity`` is
 the row reservation made at insert.  ``rollback`` commits a speculative
 verify's accepted rows and sweeps the rest; ``rollback_sweeps`` counts the
@@ -80,6 +88,57 @@ class SlotKVCache:
         rows = min(rows, self.view_len)
         return max(1, -(-rows // self.page))
 
+    def _pop_pages(self, n: int) -> list[int]:
+        """Draw `n` free pages; each leaves with one reference, the
+        caller's."""
+        pages = [self._free_pages.popleft() for _ in range(n)]
+        self._page_ref[pages] = 1
+        return pages
+
+    def _push_pages(self, pages) -> None:
+        for p in pages:
+            assert self._page_ref[p] == 0, (
+                f"page {p} returned to the free list with {self._page_ref[p]} "
+                "live references")
+            self._free_pages.append(p)
+
+    def _ids(self, pages) -> torch.Tensor:
+        """`pages` as an (n_bt,) device id vector padded with the scratch
+        page (a sweep or release of scratch is harmless: it is never read)."""
+        ids = np.full((max(self.n_bt, len(pages)),), paging.SCRATCH_PAGE, np.int32)
+        ids[: len(pages)] = pages
+        return to_device(torch.from_numpy(ids), self.device)
+
+    # -- page refcounts (prefix sharing) --------------------------------------
+
+    def page_ref(self, page: int) -> int:
+        """Live references of a physical page (slots mapping it plus the
+        prefix index's retention)."""
+        return int(self._page_ref[page])
+
+    def ref_pages(self, pages) -> None:
+        """One more reference on each page (each must be live: a page with
+        none is on the free list and has nothing to share)."""
+        for p in pages:
+            assert self._page_ref[p] >= 1, f"page {p} is free, cannot share"
+            self._page_ref[p] += 1
+
+    def deref_pages(self, pages) -> int:
+        """Drop one reference per page.  Pages whose last reference drops
+        are swept (kpos back to the sentinel: no block table and no index
+        entry reaches them any more) and return to the free list.  Returns
+        the number of pages freed."""
+        freed = []
+        for p in pages:
+            assert self._page_ref[p] >= 1, f"page {p} double-freed"
+            self._page_ref[p] -= 1
+            if self._page_ref[p] == 0:
+                freed.append(p)
+        if freed:
+            zoo.paged_sweep(self.cfg, self.cache, self._ids(freed))
+            self._push_pages(freed)
+        return len(freed)
+
     @property
     def n_free_pages(self) -> int:
         return len(self._free_pages) if self.paged else 1 << 62
@@ -96,6 +155,33 @@ class SlotKVCache:
         if not self.paged:
             return 0
         return int((self._page_ref[paging.N_RESERVED:] > 0).sum())
+
+    @property
+    def n_shared_pages(self) -> int:
+        """Pages with more than one live reference (mapped by several
+        slots, or by a slot and the prefix index's retention)."""
+        if not self.paged:
+            return 0
+        return int((self._page_ref[paging.N_RESERVED:] > 1).sum())
+
+    @property
+    def n_live_pages(self) -> int:
+        """Distinct pages mapped by at least one live slot's block table:
+        the working set.  Pages only the prefix index retains are
+        reclaimable cache, not demand; sharing shrinks this number, because
+        co-resident slots map the same physical pages."""
+        if not self.paged:
+            return 0
+        return len({p for pages in self._slot_pages.values() for p in pages})
+
+    def can_admit(self, reserve_rows: int, n_shared: int = 0) -> bool:
+        """Would a request needing `reserve_rows` cache rows fit right now?
+        ``n_shared`` pages of its budget come from the prefix index (a
+        reference more, no free-list draw), so only the rest must be free."""
+        if not self._free:
+            return False
+        return (not self.paged
+                or self.pages_needed(reserve_rows) - n_shared <= self.n_free_pages)
 
     def slot_capacity(self, slot: int) -> int:
         """Cache rows reserved for `slot` at insert time."""
@@ -133,8 +219,7 @@ class SlotKVCache:
             if n_alloc > self.n_free_pages:
                 raise RuntimeError(f"slot {slot}: {n_alloc} pages needed, "
                                    f"{self.n_free_pages} free")
-            pages = [self._free_pages.popleft() for _ in range(n_alloc)]
-            self._page_ref[pages] = 1
+            pages = self._pop_pages(n_alloc)
             ids = np.full((self.n_bt,), paging.SCRATCH_PAGE, np.int32)
             bt_row = np.full((self.n_bt,), paging.SENTINEL_PAGE, np.int32)
             ids[:n_alloc] = bt_row[:n_alloc] = pages
@@ -148,10 +233,60 @@ class SlotKVCache:
         self._slot_cap[slot] = reserve
         self.slot_len[slot] = length
 
+    def map_slot(self, slot: int, shared_pages, shared_rows: int, reserve: int,
+                 cow_src: int | None = None, cow_rows: int = 0) -> list[int]:
+        """Map `slot` onto shared prefix pages plus fresh private pages,
+        with no stripe scatter (prefix sharing, serve/prefix).
+
+        ``shared_pages`` (prefix order, ``shared_rows = len * page`` rows)
+        are live pages another owner wrote: each gains a reference and lands
+        in the slot's block table as it is, no K/V moves.  A divergent tail
+        (``cow_src`` / ``cow_rows``) is copied onto the first fresh page,
+        the donor's rows past the divergence masked out (copy-on-write).
+        The slot's ``pos`` starts at the mapped row count; the caller
+        prefills only the unshared suffix through the multi-token extension
+        path.  Returns the slot's full page list.
+
+        Like `insert` and `release`, these are eager writes on the current
+        stream: under async admission a mapping made while a decode chunk is
+        in flight is ordered after that chunk by the stream alone."""
+        assert self.paged, "map_slot requires a paged pool"
+        if not 0 <= cow_rows <= self.page or (cow_rows and cow_src is None):
+            # a divergent tail lies within one page (`PrefixIndex.match`
+            # never gives more); a longer one would claim rows no copy wrote
+            raise ValueError(f"slot {slot}: a copy-on-write tail of {cow_rows} rows from "
+                             f"page {cow_src} does not lie within one page of {self.page}")
+        total = self.pages_needed(reserve)
+        n_shared = len(shared_pages)
+        n_fresh = total - n_shared
+        assert n_fresh >= 1, "a mapped slot still needs >= 1 private page"
+        if n_fresh > self.n_free_pages:
+            raise RuntimeError(f"slot {slot}: {n_fresh} fresh pages needed, "
+                               f"{self.n_free_pages} free")
+        fresh = self._pop_pages(n_fresh)
+        self.ref_pages(shared_pages)
+        pages = list(shared_pages) + fresh
+        bt_row = np.full((self.n_bt,), paging.SENTINEL_PAGE, np.int32)
+        bt_row[:total] = pages
+        mapped_rows = shared_rows + cow_rows
+        zoo.paged_map(self.cfg, self.cache, slot,
+                      to_device(torch.from_numpy(bt_row), self.device), total, mapped_rows)
+        if cow_src is not None and cow_rows > 0:
+            # the copy is fresh[0]: logical page n_shared, right after the
+            # full shared chain
+            zoo.paged_copy_page(self.cfg, self.cache, fresh[0], cow_src, cow_rows)
+            self.cow_copies += 1
+        self._slot_pages[slot] = pages
+        self._slot_cap[slot] = reserve
+        self.slot_len[slot] = mapped_rows
+        return pages
+
     def release(self, slot: int) -> None:
-        """Reset `slot` to pristine state and return it to the free lists;
-        in paged mode each of its pages drops its reference, and pages left
-        with none are swept (kpos back to the sentinel) and freed."""
+        """Reset `slot` to pristine state and return it to the free lists.
+        In paged mode each of its pages drops one reference; only pages
+        whose last reference dropped are swept (kpos back to the sentinel)
+        and freed: a page the prefix index retains, or another slot still
+        maps, keeps its rows.  The slot's block table resets either way."""
         if self.paged:
             freed = []
             for p in self._slot_pages.pop(slot, []):
@@ -159,11 +294,8 @@ class SlotKVCache:
                 self._page_ref[p] -= 1
                 if self._page_ref[p] == 0:
                     freed.append(p)
-            ids = np.full((self.n_bt,), paging.SCRATCH_PAGE, np.int32)
-            ids[: len(freed)] = freed
-            zoo.paged_release(self.cfg, self.cache, slot,
-                              to_device(torch.from_numpy(ids), self.device))
-            self._free_pages.extend(freed)
+            zoo.paged_release(self.cfg, self.cache, slot, self._ids(freed))
+            self._push_pages(freed)
         else:
             pristine = self.template(1)
             for name, leaf in self.cache.items():
@@ -207,6 +339,7 @@ class SlotKVCache:
             self._free_pages = collections.deque(range(paging.N_RESERVED, self.n_pages))
             self._page_ref[:] = 0
             self._slot_pages: dict[int, list[int]] = {}
+            self.cow_copies = 0
         self._free = list(range(self.n_slots))
         self.slot_len = np.zeros((self.n_slots,), np.int64)
         self._slot_cap = np.zeros((self.n_slots,), np.int64)

@@ -5,9 +5,10 @@ A `Request` moves through QUEUED -> PREFILLING -> DECODING -> FINISHED.
 The scheduler owns the transitions; this module defines the data model
 and the per-request / aggregate statistics: TTFT (submit -> first token),
 decode tokens/s, packed-weight bytes per decode token, and the
-speculative-decoding counts (verify steps, drafts proposed and accepted).
-The prefix-sharing and per-request weight-share statistics wait for their
-slices.
+speculative-decoding counts (verify steps, drafts proposed and accepted)
+and the prefix-sharing ones (prompt rows served from shared pages,
+extension-prefill chunks, the hit rate).  The per-request weight-share
+statistic waits for its slice.
 """
 from __future__ import annotations
 
@@ -63,6 +64,13 @@ class Request:
     admit_time: float = 0.0
     first_token_time: float = 0.0
     finish_time: float = 0.0
+    # --- prefix sharing + chunked prefill (Scheduler(prefix_share=...,
+    # prefill_chunk=...)) ---
+    prefix_hit_tokens: int = 0     # prompt rows served from shared pages
+    prefill_chunks: int = 0        # extension-prefill dispatches it took
+    # cache rows committed so far during an extension admission (mapped
+    # prefix rows + extension-prefilled rows); the scheduler's cursor
+    prefill_cursor: int = 0
     # --- speculative decoding (Scheduler(spec=...)) ---
     spec_verify_steps: int = 0     # verify forwards this request rode
     spec_proposed: int = 0         # draft tokens judged for it
@@ -120,7 +128,10 @@ class ServeStats:
     # host time of the unfused chain's draft proposals (a slice of
     # decode_seconds; the fused loop drafts inside its cycles, so 0 there)
     spec_draft_seconds: float = 0.0
+    # --- prefix sharing + chunked prefill ---
+    prefix_hit_tokens: int = 0     # prompt rows served from shared pages
     prefill_rows: int = 0          # prompt rows computed by prefill
+    prefill_chunks: int = 0        # extension-prefill dispatches executed
     ttft_hist: Histogram = dataclasses.field(
         default_factory=lambda: Histogram("serve_ttft_seconds"))
     step_time_hist: Histogram = dataclasses.field(
@@ -140,6 +151,13 @@ class ServeStats:
     @property
     def decode_tokens_per_second(self) -> float:
         return self.decode_tokens / max(self.decode_seconds, 1e-9)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of prompt rows served from shared prefix pages instead
+        of being recomputed by prefill (0 with sharing off or no hits)."""
+        total = self.prefix_hit_tokens + self.prefill_rows
+        return self.prefix_hit_tokens / max(total, 1)
 
     @property
     def acceptance_rate(self) -> float:

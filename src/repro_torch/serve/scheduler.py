@@ -48,8 +48,22 @@ one multi-token verify forward scores them all, and the pool keeps the
 accepted rows while sweeping the rejected ones.  Greedy and "match"-mode
 sampled requests emit exactly the non-speculative stream.
 
-What waits for later slices: the model drafter, prefix sharing, chunked
-prefill, telemetry, the flight recorder and multi-device meshes.
+With prefix sharing on (`prefix_share`, "auto": on for a paged pool of a
+prefix-sharing family under the continuous policy, as the reference's),
+admission first walks a host-side radix index over token prefixes
+(`serve/prefix`): full pages another request already cached are mapped
+into the new slot's block table (a reference more, no K/V movement), a
+divergent tail page is copied (copy-on-write), and only the unshared
+suffix is prefilled, through `zoo.extend_step`, the multi-token decode
+write path the verify takes.  `prefill_chunk=N` also cuts long suffixes
+into N-row chunks advanced one per scheduler step between decode chunks
+(the decode chunk sweeps the mid-prefill slots' junk rows, as after a
+rejected speculation).  The extension program is a captured graph too,
+keyed (width bucket, sample, stochastic) as the reference's jit; mapping,
+copy-on-write and the eviction sweeps are eager writes between replays.
+
+What waits for later slices: the model drafter, telemetry, the flight
+recorder and multi-device meshes.
 """
 from __future__ import annotations
 
@@ -66,6 +80,7 @@ from repro_torch.serve import prng, sampler
 from repro_torch.serve import spec as spec_mod
 from repro_torch.serve.graphs import GraphCache
 from repro_torch.serve.kv import SlotKVCache
+from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.request import Request, RequestState, ServeStats
 
 
@@ -89,6 +104,7 @@ class Scheduler:
                  decode_chunk: int = 8, rng_seed: int = 0, policy: str = "continuous",
                  page: int | None = 64, n_pages: int | str | None = "auto",
                  spec: spec_mod.SpecConfig | None = None, packed: str = "auto",
+                 prefix_share: bool | str = "auto", prefill_chunk: int | None = None,
                  async_admission: bool | str = "auto", device="cuda"):
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown admission policy {policy!r}")
@@ -126,6 +142,33 @@ class Scheduler:
             self._check_spec(spec)
         self.kv = SlotKVCache(cfg, max_slots, max_seq, page=page, n_pages=n_pages,
                               device=self.device)
+        # prefix sharing and chunked prefill ride the multi-token decode
+        # write path (`zoo.extend_step`): a paged pool, a family whose K/V
+        # rows are per-(token, position), and the continuous policy.  "auto"
+        # turns sharing off quietly where it cannot run; True raises there
+        can_extend = (self.kv.paged and zoo.supports_prefix_share(cfg)
+                      and policy == "continuous")
+        if prefix_share == "auto":
+            prefix_share = can_extend
+        if prefix_share and not can_extend:
+            raise ValueError(
+                f"prefix sharing needs a paged pool + a prefix-sharing family under "
+                f"continuous admission (family={cfg.family!r}, window={cfg.window}, "
+                f"paged={self.kv.paged}, policy={policy!r})")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError("prefill_chunk must be >= 1 (or None)")
+            if not can_extend:
+                raise ValueError(
+                    f"chunked prefill needs a paged pool + a prefix-sharing family under "
+                    f"continuous admission (family={cfg.family!r}, paged={self.kv.paged}, "
+                    f"policy={policy!r})")
+        self.prefix_share = bool(prefix_share)
+        self.prefill_chunk = prefill_chunk
+        self.prefix = PrefixIndex(self.kv.page) if self.prefix_share else None
+        # slots mid-extension-prefill: they hold pages but no decode lane
+        self._prefilling: dict[int, Request] = {}
+        self._extend_io: dict[int, dict] = {}
         # double-buffered admission: groups prepared under an in-flight
         # chunk await their first-token sync, holding the slots and pages
         # they will draw at commit
@@ -203,6 +246,8 @@ class Scheduler:
         # token index), so streams are reproducible per request
         self._key = vec(torch.int64, 2)
         self._emits = vec(i32, self.decode_chunk, s)     # the chunk's (chunk, slots)
+        # the lanes a guarded chunk rewinds (slots mid-extension-prefill)
+        self._protect = vec(torch.bool)
         if self.spec is not None:
             k1, cyc = self.spec.k + 1, self._spec_cycles
             # the spec loop's stacked results, and one verify's (unfused)
@@ -226,10 +271,13 @@ class Scheduler:
         the same storage (the captured graphs stay valid)."""
         self._queue.clear()
         self._running.clear()
+        self._prefilling.clear()
         self._pending_admits.clear()
         self._pending_slots = 0
         self._pending_pages = 0
         self._chunk_in_flight = False
+        if self.prefix is not None:
+            self.prefix = PrefixIndex(self.kv.page)
         self.kv.reset_all()
         self._reset_state(rng_seed)
         self.stats = ServeStats(0.0, 0.0, 0, self.stats.packed_param_bytes,
@@ -237,9 +285,17 @@ class Scheduler:
 
     # -- request lifecycle --------------------------------------------------
 
+    def clear_prefix_cache(self) -> int:
+        """Drop every retained prefix (the index's page references).  Pages
+        no live slot maps return to the free list at once; shared ones follow
+        when their last slot releases.  Returns pages freed now."""
+        if self.prefix is None:
+            return 0
+        return self.prefix.clear(self.kv)
+
     @property
     def n_pending(self) -> int:
-        return (len(self._queue) + len(self._running)
+        return (len(self._queue) + len(self._prefilling) + len(self._running)
                 + sum(len(rec[0]) for rec in self._pending_admits))
 
     def _reserve_rows(self, req: Request) -> int:
@@ -297,26 +353,69 @@ class Scheduler:
         self.stats.observe_finish(req)
         finished.append(req)
 
+    def _extension_plan(self, req: Request):
+        """(take the extension path, PrefixMatch or None) for a queued
+        request.  A request extends in the pool (pages mapped first, suffix
+        prefilled through `zoo.extend_step`) when its prompt hits the prefix
+        index (a stripe-scatter insert would overwrite co-owned rows) or
+        when chunking is on and the prompt exceeds one chunk.  Misses and
+        short prompts take the bucketed group prefill."""
+        m = None
+        if self.prefix is not None:
+            # always leave >= 1 row to prefill: the first sampled token
+            # needs logits, and a fully shared prompt would give none
+            m = self.prefix.match(req.prompt, len(req.prompt) - 1)
+            if m.total_rows == 0:
+                m = None
+        chunked = self.prefill_chunk is not None and len(req.prompt) > self.prefill_chunk
+        return (m is not None or chunked), m
+
+    def _ensure_pages(self, need: int, protect=()) -> bool:
+        """Free-list pressure valve: retained prefixes are reclaimable
+        memory, so an admission short of pages evicts LRU index entries
+        (pages only the index references) until `need` pages are free.
+        `protect` shields the pages of the admission's own match: evicting
+        one would free a page its block table is about to map."""
+        short = need - self.kv.n_free_pages
+        if short > 0 and self.prefix is not None:
+            self.prefix.evict(self.kv, short, protect=protect)
+        return need <= self.kv.n_free_pages
+
     def _admit(self, finished: list[Request]) -> None:
         if self.policy == "static" and self._running:
             return  # gang admission: wait for the whole pool to drain
         # overlapped groups hold reservations: their slots and pages are
         # drawn only at commit, so gate on what is genuinely left
         while self._queue and self.kv.n_free - self._pending_slots > 0:
+            ext, m = self._extension_plan(self._queue[0])
+            if ext:
+                n_shared = len(m.page_ids) if m else 0
+                need = self.kv.pages_needed(self._reserve_rows(self._queue[0])) - n_shared
+                protect = () if m is None else tuple(m.page_ids) + (
+                    () if m.cow_src is None else (m.cow_src,))
+                if not self._ensure_pages(need + self._pending_pages, protect):
+                    return  # FIFO head waits for releases, no starvation
+                self._start_extension(self._queue.popleft(), m)
+                continue
+
             # group the queue head by prompt-length bucket: one batched
             # prefill per group (one graph per bucket and width)
             def sig(r):
                 return self._bucket_len(len(r.prompt))
 
             head_reserve = self._reserve_rows(self._queue[0])
+            if self.kv.paged:
+                head_need = self.kv.pages_needed(head_reserve)
+                self._ensure_pages(head_need + self._pending_pages)
+                if head_need + self._pending_pages > self.kv.n_free_pages:
+                    return  # FIFO head waits for releases, no starvation
             pages_left = self.kv.n_free_pages - self._pending_pages
             if self.kv.paged:
                 pages_left -= self.kv.pages_needed(head_reserve)
-                if pages_left < 0:
-                    return  # FIFO head waits for releases, no starvation
             group = [self._queue.popleft()]
             while (self._queue and len(group) < self.kv.n_free - self._pending_slots
-                   and sig(self._queue[0]) == sig(group[0])):
+                   and sig(self._queue[0]) == sig(group[0])
+                   and not self._extension_plan(self._queue[0])[0]):
                 if self.kv.paged:
                     need = self.kv.pages_needed(self._reserve_rows(self._queue[0]))
                     if need > pages_left:
@@ -443,6 +542,10 @@ class Scheduler:
             slot = self.kv.acquire()
             self.kv.insert(slot, cache_k, len(req.prompt), row=row,
                            reserve=self._reserve_rows(req))
+            if self.prefix is not None:
+                # index this prompt's full pages (retention references): the
+                # next identical prefix maps them instead of recomputing them
+                self.prefix.register(req.prompt, self.kv.slot_pages(slot), self.kv)
             armed.append((slot, req, first_i, eos))
             self._active_host[slot] = True
             req.state = RequestState.DECODING
@@ -451,6 +554,149 @@ class Scheduler:
         if armed:
             self._arm(armed)
         self.stats.prefill_seconds += time.perf_counter() - tc0
+
+    # -- extension admission (prefix sharing, chunked prefill) ---------------
+
+    def _start_extension(self, req: Request, m) -> None:
+        """Begin an extension admission: acquire a slot, map the shared
+        prefix pages (a reference more each) and fresh suffix pages into its
+        block table, copying only a divergent tail page, and queue the slot
+        for suffix prefill (`_advance_prefill`).  No stripe scatter: shared
+        pages are co-owned, and fresh rows are written in the pool by
+        `zoo.extend_step`.  Under async admission this may run while a
+        decode chunk is in flight; its pool writes queue behind the chunk on
+        the one stream."""
+        req.state = RequestState.PREFILLING
+        req.admit_time = time.perf_counter()
+        slot = self.kv.acquire()
+        shared = m.page_ids if m is not None else []
+        self.kv.map_slot(slot, shared, len(shared) * self.kv.page, self._reserve_rows(req),
+                         cow_src=m.cow_src if m is not None else None,
+                         cow_rows=m.cow_rows if m is not None else 0)
+        hit = m.total_rows if m is not None else 0
+        req.prefix_hit_tokens = hit
+        req.prefill_cursor = hit
+        self.stats.prefix_hit_tokens += hit
+        req.slot = slot
+        self._prefilling[slot] = req
+
+    def _extend_buffers(self, width: int) -> dict:
+        """The static inputs and first-token output of the extension graphs
+        of one width bucket (one row per slot)."""
+        io = self._extend_io.get(width)
+        if io is None:
+            def vec(dtype, *shape):
+                return torch.zeros(shape or (self.max_slots,), dtype=dtype, device=self.device)
+
+            io = self._extend_io[width] = {
+                "tokens": vec(torch.int32, self.max_slots, width), "keep": vec(torch.int32),
+                "seeds": vec(torch.int64), "temp": vec(torch.float32),
+                "topk": vec(torch.int32), "topp": vec(torch.float32),
+                "first": vec(torch.int32)}
+        return io
+
+    def _extend_body(self, io: dict, width: int, sample: bool, stochastic: bool):
+        """Write `width` token rows per lane from each slot's position
+        through the multi-token decode path, then sweep as after a
+        speculation: each lane keeps its `keep` real rows (padded chunk rows
+        and every other lane's junk writes rewind), so co-resident decode
+        state is untouched.  With `sample` the final chunk also projects
+        each lane's last real row and draws its first token with the key
+        admission prefill uses (seed, index 0): chunked and whole
+        admissions emit the same streams."""
+        def body():
+            cache = self.kv.cache
+            pos0 = zoo.cache_position(self.cfg, cache)
+            x, undo = zoo.extend_step(self.params, self.cfg, io["tokens"], cache)
+            zoo.cache_rollback(self.cfg, cache, undo, pos0, io["keep"], width)
+            if not sample:
+                return
+            lanes = torch.arange(self.max_slots, device=x.device)
+            last = x[lanes, torch.clamp(io["keep"] - 1, min=0).long()]
+            logits = zoo.logits_fn(self.params, self.cfg, last)[:, : self._vocab].float()
+            if stochastic:
+                keys = sampler.fold_keys(self._key, io["seeds"], torch.zeros_like(io["seeds"]))
+                first = sampler.sample(keys, logits, io["temp"], io["topk"], io["topp"])
+            else:
+                first = sampler.greedy(logits)
+            io["first"].copy_(first)
+        return body
+
+    def _advance_prefill(self, finished: list[Request]) -> None:
+        """One extension-prefill chunk for every mid-admission slot, in one
+        program: each prefilling lane writes its next `min(remaining,
+        prefill_chunk)` suffix rows from its position; every other lane's
+        junk writes are swept (keep 0).  Lanes whose suffix completes draw
+        their first token from the chunk's last real row and graduate to
+        decode (one sync per sampling chunk)."""
+        if not self._prefilling:
+            return
+        chunk_w = self.prefill_chunk or self.max_seq
+        items = []
+        for slot, req in self._prefilling.items():
+            remaining = len(req.prompt) - req.prefill_cursor
+            width = min(remaining, chunk_w)
+            items.append((slot, req, width, width == remaining))
+        w_b = self._bucket_len(max(w for _, _, w, _ in items))
+        sample = any(last for _, _, _, last in items)
+        stochastic = any(last and req.params.temperature > 0 for _, req, _, last in items)
+        s = self.max_slots
+        tokens = np.zeros((s, w_b), np.int32)
+        staged = {name: np.zeros((s,), dt) for name, dt in (
+            ("keep", np.int32), ("seeds", np.int64), ("temp", np.float32),
+            ("topk", np.int32), ("topp", np.float32))}
+        for slot, req, width, _ in items:
+            cur = req.prefill_cursor
+            tokens[slot, :width] = req.prompt[cur:cur + width]
+            staged["keep"][slot] = width
+            staged["seeds"][slot] = self._eff_seed(req) & prng.M32
+            staged["temp"][slot] = req.params.temperature
+            staged["topk"][slot] = req.params.top_k
+            staged["topp"][slot] = req.params.top_p
+        t0 = time.perf_counter()
+        io = self._extend_buffers(w_b)
+        for name, vals in (("tokens", tokens), *staged.items()):
+            io[name].copy_(to_device(torch.from_numpy(vals), self.device))
+        self.graphs.run(("extend", w_b, sample, stochastic),
+                        self._extend_body(io, w_b, sample, stochastic))
+        first_np = self._fetch(io["first"])()[0] if sample else None  # one sync
+        now = time.perf_counter()
+        self.stats.prefill_seconds += now - t0
+        for slot, req, width, last in items:
+            req.prefill_cursor += width
+            req.prefill_chunks += 1
+            self.stats.prefill_chunks += 1
+            self.stats.prefill_rows += width
+            self.kv.slot_len[slot] += width
+            if last:
+                self._complete_admission(slot, req, int(first_np[slot]), now, finished)
+
+    def _complete_admission(self, slot: int, req: Request, first_i: int, now: float,
+                            finished: list[Request]) -> None:
+        """Graduate a finished extension admission to decode: register its
+        full prompt pages in the prefix index (what a later identical prefix
+        hits) and arm its decode lane, with the n-gram history seeded from
+        the whole prompt, page-mapped rows included; or finish at once on a
+        first-token EOS or a one-token budget."""
+        p = req.params
+        eos = self._eff_eos(req)
+        req.tokens.append(first_i)
+        req.first_token_time = now
+        self.stats.tokens_generated += 1
+        del self._prefilling[slot]
+        if self.prefix is not None:
+            self.prefix.register(req.prompt, self.kv.slot_pages(slot), self.kv)
+        if (eos >= 0 and first_i == eos) or p.max_new_tokens <= 1:
+            # unlike the group path this slot exists (its pages were mapped
+            # before prefill), so release it; registered pages live on
+            # through the index's references
+            self.kv.release(slot)
+            self._finish(req, finished)
+            return
+        self._arm([(slot, req, first_i, eos)])
+        self._active_host[slot] = True
+        req.state = RequestState.DECODING
+        self._running[slot] = req
 
     def _overlap_admit(self, finished: list[Request]) -> None:
         """Double-buffered admission: called between a decode dispatch and
@@ -530,13 +776,19 @@ class Scheduler:
         keys = sampler.fold_keys(self._key, self._seeds, gens)
         return sampler.sample(keys, logits, self._temp, self._topk, self._topp)
 
-    def _chunk_body(self, stochastic: bool):
+    def _chunk_body(self, stochastic: bool, guarded: bool):
         """`decode_chunk` decode steps over the whole slot pool, into
         `_emits` (chunk, slots), -1 where a lane was inactive.  Per step:
         draw where active (`_draw`), count the token index and the budget,
         stop a lane at its EOS or when its budget is spent.  The lane state
-        moves on in place."""
+        moves on in place.  `guarded` (while a slot is mid-extension-
+        prefill): inactive lanes still write junk rows and advance their
+        position every step, which would corrupt a prefilling slot's
+        committed rows, so the chunk ends with the sweep a fully rejected
+        speculation takes: keep 0 for the `_protect` lanes, the whole chunk
+        for the rest."""
         def body():
+            pos_entry = zoo.cache_position(self.cfg, self.kv.cache) if guarded else None
             tok, active, rem, gens = self._tok, self._active, self._rem, self._gens
             for i in range(self.decode_chunk):
                 logits = zoo.decode_step(self.params, self.cfg, tok, self.kv.cache)
@@ -549,6 +801,10 @@ class Scheduler:
                 active = active & ~hit_eos & (rem > 0)
                 tok = torch.where(active, nxt, tok[:, 0])[:, None]
             self._store((tok, active, rem, gens))
+            if guarded:
+                keep = torch.where(self._protect, 0, self.decode_chunk).to(torch.int32)
+                zoo.cache_rollback(self.cfg, self.kv.cache, None, pos_entry, keep,
+                                   self.decode_chunk)
         return body
 
     def _store(self, state: tuple) -> None:
@@ -566,7 +822,12 @@ class Scheduler:
             return
         t0 = time.perf_counter()
         stochastic = self._stochastic()[0]
-        self.graphs.run(("chunk", stochastic), self._chunk_body(stochastic))
+        guarded = bool(self._prefilling)
+        if guarded:
+            protect = np.zeros((self.max_slots,), bool)
+            protect[list(self._prefilling)] = True
+            self._protect.copy_(to_device(torch.from_numpy(protect), self.device))
+        self.graphs.run(("chunk", stochastic, guarded), self._chunk_body(stochastic, guarded))
         fetched = self._fetch(self._emits, self._active)
         self._overlap_admit(finished)        # chunk in flight: prepare admission
         emits, active_np = fetched()         # the chunk's one sync
@@ -726,8 +987,10 @@ class Scheduler:
 
     @torch.no_grad()
     def step(self) -> list[Request]:
-        """One scheduler iteration: admit, one decode chunk, harvest.
-        Returns requests that finished this step.
+        """One scheduler iteration: admit (extension admissions map their
+        shared pages and start), advance every mid-prefill slot by one
+        chunk, one decode chunk, harvest.  Returns requests that finished
+        this step.
 
         With async admission the groups prepared under the previous chunk
         commit first; the chunk then dispatches and `_admit` prepares the
@@ -737,8 +1000,13 @@ class Scheduler:
         finished: list[Request] = []
         if self.async_admission:
             self._commit_admissions(finished)
-        if not self.async_admission or not self._active_host.any():
+            self._advance_prefill(finished)
+            if not self._active_host.any():
+                self._admit(finished)
+                self._commit_admissions(finished)
+        else:
             self._admit(finished)
+            self._advance_prefill(finished)
         self._decode_and_harvest(finished)
         return finished
 

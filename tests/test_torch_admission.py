@@ -73,8 +73,8 @@ def reference_async(setup):
 
 
 def _port_run(cfg, model, spec, async_admission):
-    sched = serve.Scheduler(cfg, model, spec=spec, async_admission=async_admission,
-                            device="cpu", **SCHED)
+    sched = serve.Scheduler(cfg, model, spec=spec, prefix_share=False,
+                            async_admission=async_admission, device="cpu", **SCHED)
     reqs = _workload(serve, cfg.vocab)
     sched.run(reqs)
     return sched, [r.tokens for r in reqs]

@@ -458,6 +458,7 @@ def test_reference_pruned_model_serves_the_same_streams(pruned):
     model = params_from_numpy(cfg, jax.tree.map(np.asarray, jpacked_tree), "cpu")
     assert isinstance(model.blocks[0].mlp.wd.w, PackedHiNM)
     got = requests(serve)
-    serve.Scheduler(cfg, model, async_admission=False, device="cpu", **SCHED).run(got)
+    serve.Scheduler(cfg, model, prefix_share=False, async_admission=False, device="cpu",
+                    **SCHED).run(got)
     assert [r.tokens for r in got] == [r.tokens for r in want]
     assert all(r.n_generated == 6 for r in got)

@@ -196,8 +196,8 @@ def reference_streams(setup):
 @pytest.mark.parametrize("policy", ["continuous", "static"])
 def test_sampled_streams_equal_reference(setup, reference_streams, policy):
     _, cfg, _, model = setup
-    sched = serve.Scheduler(cfg, model, policy=policy, async_admission=False, device="cpu",
-                            **SCHED)
+    sched = serve.Scheduler(cfg, model, policy=policy, prefix_share=False,
+                            async_admission=False, device="cpu", **SCHED)
     reqs = _workload(serve, cfg.vocab)
     sched.run(reqs)
     assert [r.tokens for r in reqs] == reference_streams[policy]
@@ -212,8 +212,8 @@ def test_sampled_stream_independent_of_slot_and_neighbours(setup, reference_stre
     for rid in (1, 3, 5):
         req = busy[rid]
         req.arrival = 0
-        serve.Scheduler(cfg, model, async_admission=False, device="cpu",
-                        **dict(SCHED, max_slots=1)).run([req])
+        serve.Scheduler(cfg, model, prefix_share=False, async_admission=False,
+                        device="cpu", **dict(SCHED, max_slots=1)).run([req])
         assert req.tokens == reference_streams["continuous"][rid]
 
 

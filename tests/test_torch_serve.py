@@ -66,8 +66,8 @@ def reference_streams(setup):
 @pytest.mark.parametrize("policy", ["continuous", "static"])
 def test_scheduler_streams_identical(setup, reference_streams, policy):
     _, cfg, _, model, prompts = setup
-    sched = serve.Scheduler(cfg, model, policy=policy, async_admission=False, device="cpu",
-                            **SCHED)
+    sched = serve.Scheduler(cfg, model, policy=policy, prefix_share=False,
+                            async_admission=False, device="cpu", **SCHED)
     reqs = _requests(serve, prompts)
     done = sched.run(reqs)
     assert sorted(r.rid for r in done) == list(range(len(LENS)))
@@ -82,7 +82,8 @@ def test_serve_engine_identical(setup):
     kw = dict(max_seq=64, decode_chunk=4, page=16)
     want, _ = jserve.ServeEngine(jcfg, packed, prefix_share=False, **kw).generate(
         batch, max_new_tokens=5)
-    got, stats = serve.ServeEngine(cfg, model, device="cpu", **kw).generate(
+    got, stats = serve.ServeEngine(cfg, model, prefix_share=False, device="cpu",
+                                   **kw).generate(
         batch, max_new_tokens=5)
     np.testing.assert_array_equal(got, want)
     assert stats.requests_finished == 2
@@ -90,7 +91,8 @@ def test_serve_engine_identical(setup):
 
 def test_page_conservation_and_no_leaks(setup, reference_streams):
     _, cfg, _, model, prompts = setup
-    sched = serve.Scheduler(cfg, model, async_admission=False, device="cpu", **SCHED)
+    sched = serve.Scheduler(cfg, model, prefix_share=False, async_admission=False,
+                            device="cpu", **SCHED)
     kv = sched.kv
     pending = _requests(serve, prompts)
     reqs, t = list(pending), 0
@@ -113,8 +115,8 @@ def test_page_conservation_and_no_leaks(setup, reference_streams):
 
 def test_stripe_pool_streams_identical(setup, reference_streams):
     _, cfg, _, model, prompts = setup
-    sched = serve.Scheduler(cfg, model, async_admission=False, device="cpu",
-                            **dict(SCHED, page=None))
+    sched = serve.Scheduler(cfg, model, prefix_share=False, async_admission=False,
+                            device="cpu", **dict(SCHED, page=None))
     reqs = _requests(serve, prompts)
     sched.run(reqs)
     assert [r.tokens for r in reqs] == reference_streams["continuous"]
