@@ -55,7 +55,26 @@ Phases (each prints its own lines; any failure exits non-zero):
                pool after `clear_prefix_cache()`, K2 at an extension width
                over 98 rows; streams equal across runs or parted at a near
                tie (the extension path's measured logit noise).
-  6. agree   — teacher-forced prefill + 4 paged decode steps with the
+  6. observe — telemetry and the flight recorder on the same model and
+               Scheduler(max_slots=4, max_seq=256, page=16, decode_chunk=8):
+               the main flow's mix and the share workload (sharing on,
+               prefill_chunk=64) served with telemetry=True, flightrec=True
+               on a fresh scheduler, first run recorded and dumped, then a
+               graphed run whose streams and launch counts (from 0; 168
+               hinm_spmm and 24 paged_decode_attn per decode step of each
+               chunk graph) must equal the serve phase's observability-off
+               graphed run; each record replayed on a fresh scheduler
+               (event- and token-identical) and the mix's on decode_chunk 4
+               (first divergence: `config`); the metrics snapshot and a
+               Chrome trace (the reference's validity checks) under
+               chiprun_out/; decode tok/s and p50 step of the 8 greedy
+               requests with telemetry off, on, and on with the recorder;
+               torch.profiler over a few decode chunks, greedy and sampled,
+               graphed and as the eager twin, top device ops per step; and
+               examples/serve_hinm_torch.py as a subprocess at its defaults
+               with --compare-dense, recording (exit 0, identical: True),
+               then replaying the record (exit 0, replay OK).
+  7. agree   — teacher-forced prefill + 4 paged decode steps with the
                kernels, with the plain versions and with the masked-dense
                twin (torch.matmul): logits must agree.
 The line before the last holds the per-kernel JSON; the last line is
@@ -1206,7 +1225,8 @@ def serve_phase(cfg, model):
     before_after("greedy", runs)
     mixed = mixed_phase(cfg, model, sched, prof)
     shared = share_phase(cfg, model, sched, prof["spec_bits"], mixed["prefill_width_noise"])
-    return {"hinm_spmm": k1_n, "paged_decode_attn": k2_n,
+    return {"hinm_spmm": k1_n, "paged_decode_attn": k2_n, "sched": sched,
+            "greedy_requests": requests,
             "decode_tok_s": line["decode_tok_s"], "served_p50_step_ms": line["p50_step_ms"],
             "profile": prof, "wall_s": line["wall_s"], "prefill_k1_per_admission": prefill_k1,
             "runs": {mode: ln for mode, (_, ln) in runs.items()}, "twins": twins,
@@ -1216,6 +1236,12 @@ def serve_phase(cfg, model):
 # examples/serve_hinm.py's workload (build_workload at its defaults: 10
 # requests, 32-token prompts, one arriving per scheduler step)
 MIXED_REQUESTS, MIXED_PROMPT = 10, 32
+
+
+def mixed_prompts(vocab):
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, vocab, MIXED_PROMPT).astype(np.int32)
+            for _ in range(MIXED_REQUESTS)]
 
 
 def mixed_requests(prompts):
@@ -1326,7 +1352,8 @@ def serve_run(label, sched, make_requests):
     for mode in ("graphed", "eager"):
         sched.reset()
         reqs = make_requests()
-        c0, r0, o0 = g.captures, g.replays, sched._overlap_groups
+        c0, r0 = g.captures, g.replays
+        o0 = sched.telemetry.registry.value("serve_overlap_admissions")
         torch.cuda.synchronize()
         hs.hinm_spmm.launches = 0
         pa.paged_decode_attn.launches = 0
@@ -1354,7 +1381,8 @@ def serve_run(label, sched, make_requests):
                     tokens_per_verify_step=st.tokens_per_verify_step,
                     hinm_spmm=k1_n, paged_decode_attn=k2_n,
                     rollback_sweeps=sched.kv.rollback_sweeps,
-                    overlapped_groups=sched._overlap_groups - o0,
+                    overlapped_groups=sched.telemetry.registry.value(
+                        "serve_overlap_admissions") - o0,
                     graphs_captured_warmup=warm, graphs_captured=g.captures - c0,
                     graph_replays=g.replays - r0,
                     mean_step_ms=st.decode_seconds / st.decode_steps * 1e3,
@@ -1560,9 +1588,7 @@ def mixed_phase(cfg, model, sched, prof):
     from repro_torch.serve import Scheduler, SpecConfig
 
     bits = prof["spec_bits"]
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab, MIXED_PROMPT).astype(np.int32)
-               for _ in range(MIXED_REQUESTS)]
+    prompts = mixed_prompts(cfg.vocab)
     geom = dict(max_slots=4, max_seq=256, page=16, decode_chunk=8)
     runs = {"plain": serve_run("mixed plain", sched, lambda: mixed_requests(prompts))}
     for label, fused in (("spec fused", True), ("spec unfused", False)):
@@ -1614,6 +1640,7 @@ def mixed_phase(cfg, model, sched, prof):
         raise AssertionError(f"speculative streams part from the plain ones beyond the "
                              f"near-tie rule: {bad}")
     return {"runs": {k: {mode: ln for mode, (_, ln) in v.items()} for k, v in runs.items()},
+            "tokens": {k: [r.tokens for r in v["graphed"][0]] for k, v in runs.items()},
             "identical": same, "near_tie_threshold": delta, "prefill_width_noise": noise,
             "partings": partings, "twins": twins}
 
@@ -1825,8 +1852,373 @@ def share_phase(cfg, model, sched0, bits, width_noise):
     for label, r in runs.items():
         before_after(f"share {label}", r)
     return {"runs": {k: {mode: ln for mode, (_, ln) in v.items()} for k, v in runs.items()},
+            "tokens": {k: [r.tokens for r in v["graphed"][0]] for k, v in runs.items()},
             "identical": same, "near_tie_threshold": delta, "extension_noise": ext,
             "partings": partings, "twins": twins}
+
+
+# --------------------------------------------------------------------------
+# phase 6: telemetry and the flight recorder on the served model
+# --------------------------------------------------------------------------
+
+OUT = os.path.join(ROOT, "chiprun_out")
+PROFILE_STEPS = 3         # scheduler steps (decode chunks) under torch.profiler
+
+
+def validate_chrome_trace(doc: dict) -> None:
+    """The structural checks tests/test_telemetry.py applies to the
+    reference's committed trace: monotonic timestamps, every B matched by
+    an E on its thread, instants scoped, only B/E/M/i events."""
+    evs = doc["traceEvents"]
+    if not evs:
+        raise AssertionError("empty trace")
+    last_ts, stacks = -1.0, {}
+    for e in (e for e in evs if e["ph"] in ("B", "E")):
+        if not (e["ts"] >= 0 and e["ts"] >= last_ts):
+            raise AssertionError(f"timestamps not monotonic at {e}")
+        last_ts = e["ts"]
+        key = (e["pid"], e["tid"])
+        if e["ph"] == "B":
+            stacks.setdefault(key, []).append(e["name"])
+        elif not stacks.get(key):
+            raise AssertionError(f"E without open B on {key}")
+        else:
+            stacks[key].pop()
+    if any(stacks.values()):
+        raise AssertionError("unclosed B events")
+    for e in evs:
+        if e["ph"] not in ("B", "E", "M", "i"):
+            raise AssertionError(f"unexpected phase {e['ph']!r}")
+        if e["ph"] == "i" and (e["s"] not in ("t", "p", "g") or e["ts"] < 0):
+            raise AssertionError(f"bad instant {e}")
+    tracks = {e["args"]["name"] for e in evs if e["ph"] == "M" and e["name"] == "thread_name"}
+    if "scheduler" not in tracks or not any(t.startswith("req") for t in tracks):
+        raise AssertionError(f"trace tracks {sorted(tracks)}")
+
+
+def launch_counts() -> tuple[int, int]:
+    from repro_torch.kernels import hinm_spmm as hs
+    from repro_torch.kernels import paged_attn as pa
+
+    return hs.hinm_spmm.launches, pa.paged_decode_attn.launches
+
+
+def zero_launches() -> None:
+    from repro_torch.kernels import hinm_spmm as hs
+    from repro_torch.kernels import paged_attn as pa
+
+    torch.cuda.synchronize()
+    hs.hinm_spmm.launches = 0
+    pa.paged_decode_attn.launches = 0
+
+
+def chunk_launches(cfg, sched) -> dict:
+    """K1 and K2 launches per decode step of each captured decode-chunk
+    graph (the counts its capture recorded, divided by the chunk)."""
+    return {key: tuple(n / sched.decode_chunk for n in deltas[:2])
+            for key, (_, deltas) in sched.graphs._graphs.items() if key[0] == "chunk"}
+
+
+def observed_workload(label, cfg, model, make_requests, want_tokens, want_line, kw):
+    """One workload served with telemetry and the flight recorder on, on a
+    fresh scheduler: a first run (each program's first use runs eagerly
+    and is captured) whose record is dumped, then a graphed run (replays,
+    launch counts from 0) whose streams and launches must equal the
+    observability-off graphed run of the same workload in the serve
+    phase.  The record is replayed on a fresh scheduler built the same
+    way (event- and token-identical).  Returns the scheduler and a line."""
+    from repro_torch.serve import Scheduler, replay
+
+    geom = dict(max_slots=4, max_seq=256, page=16, decode_chunk=8)
+    sched = Scheduler(cfg, model, telemetry=True, flightrec=True, **geom, **kw)
+    t0 = time.perf_counter()
+    drive(sched, make_requests())
+    record = os.path.join(OUT, f"observe_{label.replace(' ', '_')}.jsonl")
+    sched.flight.dump(record)
+    n_events = len(sched.flight)
+    first_s = time.perf_counter() - t0
+    sched.reset()
+    reqs = make_requests()
+    zero_launches()
+    t0 = time.perf_counter()
+    drive(sched, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = launch_counts()
+    same = sum(r.tokens == t for r, t in zip(reqs, want_tokens))
+    per_step = chunk_launches(cfg, sched)
+    print(f"observe {label}: telemetry + flight recorder on: first run {first_s:.2f} s "
+          f"({n_events} events recorded -> {os.path.relpath(record, ROOT)}), graphed run "
+          f"{wall:.2f} s; streams equal to the observability-off graphed run {same}/"
+          f"{len(reqs)}; launches hinm_spmm {k1} / paged_decode_attn {k2} (off: "
+          f"{want_line['hinm_spmm']} / {want_line['paged_decode_attn']}); per decode step "
+          f"of each chunk graph {per_step}", flush=True)
+    if same != len(reqs):
+        raise AssertionError(f"observe {label}: observability changed the streams")
+    if (k1, k2) != (want_line["hinm_spmm"], want_line["paged_decode_attn"]):
+        raise AssertionError(f"observe {label}: observability changed the launches")
+    if not per_step or any(v != (7 * cfg.n_layers, cfg.n_layers) for v in per_step.values()):
+        raise AssertionError(f"observe {label}: launches per decode step {per_step}")
+    rep = replay(record, Scheduler(cfg, model, telemetry=True, flightrec=True, **geom, **kw))
+    print(f"observe {label}: replay on a fresh scheduler: {rep.render()}", flush=True)
+    rep.assert_equal()
+    return sched, dict(first_run_s=first_s, graphed_s=wall, events=n_events, record=record,
+                       streams_equal=same, requests=len(reqs), hinm_spmm=k1,
+                       paged_decode_attn=k2, per_step={str(k): v for k, v in per_step.items()},
+                       replay_ok=rep.ok)
+
+
+def overhead_runs(cfg, served) -> dict:
+    """The serve phase's 8 greedy requests, telemetry off (the serve
+    phase's scheduler), on, and on with the flight recorder, each warmed
+    once, then measured in turns (off, on, on+rec, on+rec, on, off):
+    decode tok/s and p50 step from the scheduler's stats."""
+    from repro_torch.serve import Scheduler
+
+    geom = dict(max_slots=4, max_seq=256, page=16, decode_chunk=8)
+    make = served["greedy_requests"]
+    scheds = {"off": served["sched"],
+              "telemetry": Scheduler(cfg, served["sched"].params, telemetry=True, **geom),
+              "telemetry+recorder": Scheduler(cfg, served["sched"].params, telemetry=True,
+                                              flightrec=True, **geom)}
+    for sched in scheds.values():
+        sched.reset()
+        sched.run(make())                       # warm: every program captured
+    out = {k: [] for k in scheds}
+    for mode in ("off", "telemetry", "telemetry+recorder", "telemetry+recorder",
+                 "telemetry", "off"):
+        sched = scheds[mode]
+        sched.reset()
+        torch.cuda.synchronize()
+        sched.run(make())
+        torch.cuda.synchronize()
+        st = sched.stats
+        out[mode].append((st.decode_tokens_per_second, st.step_time_percentile(50) * 1e3))
+    for mode, vals in out.items():
+        print(f"observe overhead, 8 greedy requests, {mode}: decode tok/s "
+              + ", ".join(f"{v[0]:.1f}" for v in vals) + "; p50 step ms "
+              + ", ".join(f"{v[1]:.3f}" for v in vals), flush=True)
+    return {mode: {"decode_tok_s": [v[0] for v in vals], "p50_step_ms": [v[1] for v in vals]}
+            for mode, vals in out.items()}
+
+
+# device ops by class, first match on the kernel's name: the two serving
+# kernels, then what the step's "rest" is made of
+OP_CLASSES = (("K1 hinm_spmm", ("spmm_rows", "spmm_mma", "transpose_pad", "sum_splits")),
+              ("K2 paged_decode_attn", ("split_kernel", "combine_kernel")),
+              ("GEMM (cuBLAS: lm_head)", ("nvjet", "gemm", "cutlass")),
+              ("sort", ("Sort", "sort")), ("scan (cumsum)", ("scan",)),
+              ("softmax", ("SoftMax", "softmax")), ("reduce (norm mean, argmax)", ("reduce",)),
+              ("index / gather / scatter", ("index", "gather", "scatter")),
+              ("copy / cast / cat", ("copy", "CatArray")),
+              ("elementwise math", ("elementwise",)),
+              ("memcpy / memset", ("Memcpy", "Memset", "memcpy")))
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without namespaces and its parameter list."""
+    for junk in ("void ", "at::native::", "(anonymous namespace)::", "at_cuda_detail::",
+                 "c10::", "std::"):
+        name = name.replace(junk, "")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0 and i:
+            return name[:i]
+    return name
+
+
+def device_ops(prof) -> list:
+    """[(self device ms, launches, name)], descending, of the device-side
+    events in a profile (kernels, copies, sets), without the annotation
+    ranges the profiler also puts on the device timeline."""
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")) or e.key.startswith("serve_"):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            rows.append((t / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def op_classes(rows, steps: int) -> dict:
+    """Device ms and launches per decode step by `OP_CLASSES`."""
+    out = {}
+    for ms, n, name in rows:
+        cls = next((c for c, keys in OP_CLASSES if any(k in name for k in keys)), "other")
+        t, c = out.get(cls, (0.0, 0.0))
+        out[cls] = (t + ms / steps, c + n / steps)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
+def profile_steps(cfg, sched, sampled: bool, eager: bool) -> dict:
+    """Four slots decoding (prompts PROFILE_LENS, greedy or every lane
+    sampled at T 0.8 top-k 16): two steps admit them and capture the
+    decode chunk, then PROFILE_STEPS steps under torch.profiler, replayed
+    from the graphs or, with `eager`, as the eager twin (`graphs._eager()`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Request, SamplingParams, graphs
+
+    rng = np.random.default_rng(3)
+    sched.reset()
+    for i, n in enumerate(PROFILE_LENS):
+        sched.submit(Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                             params=SamplingParams(max_new_tokens=48,
+                                                   temperature=0.8 if sampled else 0.0,
+                                                   top_k=16 if sampled else 0, seed=i)))
+    for _ in range(2):
+        sched.step()
+    if len(sched._running) != len(PROFILE_LENS):
+        raise AssertionError(f"profile: {len(sched._running)} slots decoding")
+    torch.cuda.synchronize()
+    steps0 = sched.stats.decode_steps
+    with graphs._eager() if eager else contextlib.nullcontext():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_STEPS):
+                sched.step()
+            torch.cuda.synchronize()
+    steps = sched.stats.decode_steps - steps0
+    rows = device_ops(prof)
+    total = sum(r[0] for r in rows)
+    tag = f"{'sampled' if sampled else 'greedy'}_{'eager' if eager else 'graphed'}"
+    avg = prof.key_averages()
+    key = ("self_device_time_total" if hasattr(avg[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    with open(os.path.join(OUT, f"observe_profile_{tag}.txt"), "w") as f:
+        f.write(avg.table(sort_by=key, row_limit=60))
+    annotated = sorted({e.key for e in prof.key_averages()
+                        if e.key.startswith("serve_decode_chunk")})
+    return dict(steps=steps, device_ms=total, device_ms_per_step=total / max(steps, 1),
+                launches_per_step=sum(r[1] for r in rows) / max(steps, 1), ops=rows,
+                classes=op_classes(rows, max(steps, 1)), annotations=annotated)
+
+
+def profile_phase(cfg, model) -> dict:
+    """The device trace: torch.profiler over PROFILE_STEPS decode chunks,
+    greedy and sampled, replayed from the captured graphs, on a scheduler
+    whose telemetry annotates its phases (`record_function`).  Where the
+    profiler shows a replay as one launch rather than its kernels, the
+    eager twin of the same steps names them instead.  Prints the device
+    time per decode step by op class and the top ops with their
+    launches."""
+    from repro_torch.serve import Scheduler, Telemetry
+
+    sched = Scheduler(cfg, model, max_slots=4, max_seq=256, page=16, decode_chunk=8,
+                      telemetry=Telemetry(enabled=True, annotate=True))
+    out = {}
+    for sampled in (False, True):
+        r = profile_steps(cfg, sched, sampled, eager=False)
+        source = "graphed"
+        if "K1 hinm_spmm" not in r["classes"]:
+            r, source = profile_steps(cfg, sched, sampled, eager=True), "eager twin"
+        label = "sampled" if sampled else "greedy"
+        out[label] = dict(r, source=source)
+        per = max(r["steps"], 1)
+        print(f"observe profile, {label} decode ({source}): {r['steps']} decode steps, "
+              f"{r['device_ms_per_step']:.3f} device ms and {r['launches_per_step']:.1f} "
+              f"launches per step; annotations {r['annotations']}; by class, per step:" + "".join(
+                  f"\n  {ms:8.4f} ms {n:8.2f}x  {cls}" for cls, (ms, n) in r["classes"].items())
+              + "\n top ops, per step:" + "".join(
+                  f"\n  {ms / per:8.4f} ms {n / per:7.2f}x  {short_name(name)[:150]}"
+                  for ms, n, name in r["ops"][:25]), flush=True)
+    return {k: dict(v, ops=v["ops"][:40]) for k, v in out.items()}
+
+
+def entry_point_runs() -> dict:
+    """examples/serve_hinm_torch.py on the card at its defaults, with
+    --compare-dense: once recording (exit 0, `identical: True`), once
+    replaying that record with the same flags (exit 0, replay OK)."""
+    rec = os.path.join(OUT, "serve_hinm_torch.jsonl")
+    script = os.path.join(ROOT, "examples", "serve_hinm_torch.py")
+    out = {}
+    for mode, extra, want in (("record", ["--record", rec], "identical: True"),
+                              ("replay", ["--replay", rec], "replay OK")):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, script, "--compare-dense", *extra], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(OUT, f"serve_hinm_torch_{mode}.txt"), "w") as f:
+            f.write(p.stdout + "\n--- stderr ---\n" + p.stderr)
+        tail = "\n  ".join(p.stdout.strip().splitlines()[-8:])
+        print(f"observe entry point, {mode} (exit {p.returncode}, {wall:.1f} s):\n  {tail}",
+              flush=True)
+        if p.returncode != 0 or want not in p.stdout or "identical: False" in p.stdout:
+            raise AssertionError(f"examples/serve_hinm_torch.py --{mode} failed (exit "
+                                 f"{p.returncode}): {p.stderr[-2000:]}")
+        out[mode] = dict(exit=p.returncode, wall_s=wall)
+    return out
+
+
+def observe_phase(cfg, model, served) -> dict:
+    """Telemetry and the flight recorder on the served model: streams and
+    launches unchanged with both on (the main flow's mix, and the share
+    workload with prefill_chunk=SHARE_CHUNK), records replayed event- and
+    token-identically, a replay on another decode_chunk named at `config`,
+    the metrics snapshot and a valid Chrome trace under chiprun_out/, the
+    overhead on the greedy requests, the device trace, and the port's
+    entry point run as a subprocess."""
+    from repro_torch.serve import Scheduler, replay
+
+    os.makedirs(OUT, exist_ok=True)
+    t_phase = time.perf_counter()
+    mix = mixed_prompts(cfg.vocab)
+    share = share_prompts(cfg.vocab)
+    mixed, shared = served["mixed"], served["shared"]
+    sched, mix_line = observed_workload(
+        "mix", cfg, model, lambda: mixed_requests(mix), mixed["tokens"]["plain"],
+        mixed["runs"]["plain"]["graphed"], {})
+    _, share_line = observed_workload(
+        "share chunked", cfg, model, lambda: share_requests(share),
+        shared["tokens"]["chunked"], shared["runs"]["chunked"]["graphed"],
+        dict(prefix_share=True, prefill_chunk=SHARE_CHUNK))
+    other = Scheduler(cfg, model, max_slots=4, max_seq=256, page=16, decode_chunk=4,
+                      telemetry=True, flightrec=True)
+    rep = replay(mix_line["record"], other)
+    first = rep.diff.first
+    print(f"observe replay on decode_chunk 4: events equal {rep.events_equal}, tokens equal "
+          f"{rep.tokens_equal}; first divergence: "
+          f"{first.describe().splitlines()[0] if first else None} ({first.a.kind if first else None})",
+          flush=True)
+    if rep.events_equal or first.a.kind != "config" or first.b.kind != "config":
+        raise AssertionError("the perturbed replay did not part at the config event")
+    metrics = os.path.join(OUT, "observe_metrics.json")
+    trace = os.path.join(OUT, "observe_trace.json")
+    sched.telemetry.dump_metrics(metrics)
+    sched.telemetry.dump_trace(trace)
+    with open(trace) as f:
+        doc = json.load(f)
+    validate_chrome_trace(doc)
+    snap = sched.metrics_snapshot()
+    reg = sched.telemetry.registry
+    counters = {m["name"] + (str(m["labels"]) if m["labels"] else ""): m["value"]
+                for m in snap["metrics"] + snap["global"]["metrics"] if m["kind"] == "counter"}
+    print(f"observe artifacts: {os.path.relpath(metrics, ROOT)} ({len(snap['metrics'])} "
+          f"instruments), {os.path.relpath(trace, ROOT)} ({len(doc['traceEvents'])} events, "
+          f"valid); decode step p50 {reg.get('serve_decode_step_seconds').percentile(50) * 1e3:.3f}"
+          f" ms, host gap p50 {reg.get('serve_host_gap_seconds').percentile(50) * 1e3:.3f} ms; "
+          f"counters {counters}", flush=True)
+    if reg.value("serve_inflight_syncs") != 0:
+        raise AssertionError("a blocking sync was issued under a chunk in flight")
+    parts = {"streams, replays, artifacts": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    overhead = overhead_runs(cfg, served)
+    parts["overhead"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = profile_phase(cfg, model)
+    parts["profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entry = entry_point_runs()
+    parts["entry point"] = time.perf_counter() - t0
+    wall = time.perf_counter() - t_phase
+    print(f"observe phase took {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()), flush=True)
+    return dict(mix=mix_line, share=share_line, perturbed_first=first.a.kind,
+                overhead=overhead, profile=prof, entry_point=entry, wall_s=wall, parts=parts)
 
 
 @torch.no_grad()
@@ -1921,7 +2313,10 @@ def main() -> int:
     phase("5. serve")
     served = serve_phase(cfg, model)
 
-    phase("6. agree")
+    phase("6. observe")
+    observed = observe_phase(cfg, model, served)
+
+    phase("7. agree")
     agree_phase(cfg, model)
 
     k2_rep = next(c for c in k2 if c["case"] == "s=1 window=0" and c["dtype"] == "bfloat16")
@@ -2015,6 +2410,14 @@ def main() -> int:
     print(f"share: streams equal to sharing off {served['shared']['identical']}; "
           f"{len(served['shared']['partings'])} near-tie parting(s) (threshold "
           f"{served['shared']['near_tie_threshold']:.3e})")
+    ov = observed["overhead"]
+    print("observe: streams and launches unchanged with telemetry and the recorder on "
+          f"(mix {observed['mix']['streams_equal']}/{observed['mix']['requests']}, share "
+          f"{observed['share']['streams_equal']}/{observed['share']['requests']}); records "
+          f"replayed; perturbed replay parts at {observed['perturbed_first']}; greedy decode "
+          "tok/s " + ", ".join(f"{k} {np.mean(v['decode_tok_s']):.1f}" for k, v in ov.items())
+          + f"; entry point exits {[v['exit'] for v in observed['entry_point'].values()]}; "
+          f"phase {observed['wall_s']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

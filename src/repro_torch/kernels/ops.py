@@ -12,10 +12,23 @@ packed matmul) explicitly asks for a plain version: the tests and
 `chip_smoke.py`'s comparisons use it.  ``"cuda"`` asks for the kernel and
 raises on a CPU tensor.  There is no fallback: a CUDA tensor launches the
 kernel or raises (missing nvcc, failed build, failed launch).
+`paged_attention`'s "auto" defers to `perf_knobs.KNOBS.paged_attn`, the
+knob a scheduler resolves once.
+
+Every `paged_attention` decision made while a program is being built
+(`building()`: the scheduler's graph cache opens it around a graph
+capture, or a key's first eager run on the CPU) lands in the process-
+global registry as ``paged_attn_dispatch{decision, reason}`` — once per
+program, never per replay or per eager step, as the reference counts once
+per XLA trace.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+from repro_torch import perf_knobs
 
 from repro_torch.core.types import PackedHiNM
 from repro_torch.kernels import hinm_spmm as _spmm
@@ -32,6 +45,32 @@ def _resolve(backend: str, t: torch.Tensor, extra=()) -> str:
     if backend == "auto":
         return "cuda" if t.device.type == "cuda" else "torch"
     return backend
+
+
+_building = False
+
+
+@contextlib.contextmanager
+def building():
+    """Count dispatch decisions inside the block (see the module docstring)."""
+    global _building
+    prev, _building = _building, True
+    try:
+        yield
+    finally:
+        _building = prev
+
+
+def _count_dispatch(decision: str, reason: str) -> None:
+    """Tally a paged-attention backend decision in the global metrics
+    registry while a program is being built.  Imported lazily: the serve
+    package sits above the kernel layer in the import graph."""
+    if not _building:
+        return
+    from repro_torch.serve.telemetry import metrics as _tm
+
+    _tm.GLOBAL.counter("paged_attn_dispatch",
+                       labels={"decision": decision, "reason": reason}).inc()
 
 
 def hinm_matmul(x: torch.Tensor, p: PackedHiNM, backend: str = "auto",
@@ -64,8 +103,18 @@ def paged_attention(
 ) -> torch.Tensor:
     """Block-table-resolved decode attention over a paged KV pool.
     Returns (B, s, H, hd) in q's dtype — always a result: unlike the JAX
-    dispatch it never returns None to defer to a gather path."""
-    if _resolve(backend, q) == "cuda":
+    dispatch it never returns None to defer to a gather path.  The
+    decision counts as ``kernel`` or ``plain``, by "auto" (``auto-cuda`` /
+    ``auto-cpu``) or ``forced``."""
+    if backend == "auto":
+        backend = perf_knobs.KNOBS.paged_attn
+    chosen = _resolve(backend, q)
+    if backend == "auto":
+        reason = "auto-cuda" if chosen == "cuda" else "auto-cpu"
+    else:
+        reason = "forced"
+    _count_dispatch("kernel" if chosen == "cuda" else "plain", reason)
+    if chosen == "cuda":
         return _pattn.paged_decode_attn(q, k_pool, v_pool, kpos_pool, bt, q_pos,
                                         window=window)
     return _pattn.paged_decode_attn_ref(q, k_pool, v_pool, kpos_pool, bt, q_pos,

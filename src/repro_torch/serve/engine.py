@@ -6,7 +6,8 @@ in, a (B, max_new_tokens) token matrix out — and runs on `Scheduler`:
 every prompt becomes a `Request` and the batch becomes a slot pool of
 width B.  `temperature`, `top_k` and `top_p` apply to every prompt (0 =
 greedy); `spec` turns on speculative decoding (`serve/spec`);
-`prefix_share` and `prefill_chunk` go to the scheduler as they are.
+`prefix_share`, `prefill_chunk` and `telemetry` go to the scheduler as
+they are.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ class ServeEngine:
                  top_k: int = 0, top_p: float = 0.0, decode_chunk: int = 8,
                  page: int | None = 64, n_pages: int | str | None = "auto",
                  spec=None, packed: str = "auto", prefix_share: bool | str = "auto",
-                 prefill_chunk: int | None = None, device="cuda"):
+                 prefill_chunk: int | None = None, device="cuda", telemetry=None):
         self.cfg = cfg
         self.params = params
         self.packed = packed
@@ -40,6 +41,7 @@ class ServeEngine:
         self.n_pages = n_pages
         self.prefix_share = prefix_share
         self.prefill_chunk = prefill_chunk
+        self.telemetry = telemetry
         self.device = resolve_device(device)
         self._sched: Scheduler | None = None
 
@@ -50,7 +52,7 @@ class ServeEngine:
                 decode_chunk=self.decode_chunk, rng_seed=rng_seed, page=self.page,
                 n_pages=self.n_pages, spec=self.spec, packed=self.packed,
                 prefix_share=self.prefix_share, prefill_chunk=self.prefill_chunk,
-                device=self.device)
+                device=self.device, telemetry=self.telemetry)
         else:
             self._sched.reset(rng_seed)
         return self._sched

@@ -21,6 +21,13 @@ device), and so does every body inside the private `_eager()` block,
 the counterpart of `jax.disable_jit` that chip_smoke's graphed-vs-eager
 gate uses.  A capture or replay that fails raises.
 
+A key's program is built once: by its capture, or on the CPU (and under
+`_eager()`) by its first run.  That one run is what the reference's
+trace-time instruments see: it runs inside `ops.building()` (the kernel
+dispatch counters) and calls the cache's `on_build(key)` (the scheduler's
+``serve_prefill_traces``), so those counts follow programs built, never
+replays or eager steps.
+
 The kernels count their launches in Python, so a replay would add
 nothing to ``hinm_spmm.launches`` and the others: the cache records each
 counter's increase during capture, takes it back (a capture launches
@@ -33,7 +40,7 @@ import contextlib
 
 import torch
 
-from repro_torch.kernels import hinm_spmm, nm_select, paged_attn
+from repro_torch.kernels import hinm_spmm, nm_select, ops, paged_attn
 
 # every kernel wrapper's launch counter
 _COUNTERS = (hinm_spmm.hinm_spmm, paged_attn.paged_decode_attn, nm_select.nm_select)
@@ -55,25 +62,42 @@ def _eager():
 
 class GraphCache:
     """Keyed CUDA graphs over one shared memory pool (see the module
-    docstring).  ``captures`` and ``replays`` count what it did."""
+    docstring).  ``captures`` and ``replays`` count what it did;
+    `on_build(key)` is called once per key, when its program is built."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, on_build=None):
         self.device = device
         self._graphs: dict = {}
         self._pool = None
+        self._built: set = set()
+        self._on_build = on_build
         self.captures = 0
         self.replays = 0
+
+    @contextlib.contextmanager
+    def _building(self, key):
+        """The run that builds `key`'s program (a no-op block once built)."""
+        if key in self._built:
+            yield
+            return
+        self._built.add(key)
+        if self._on_build is not None:
+            self._on_build(key)
+        with ops.building():
+            yield
 
     def run(self, key, body) -> None:
         """Run `body` as the graph of `key`: eagerly (then captured) on its
         first use, replayed after."""
         if self.device.type != "cuda" or _run_eager:
-            body()
+            with self._building(key):
+                body()
             return
         entry = self._graphs.get(key)
         if entry is None:
             body()
-            self._graphs[key] = self._capture(body)
+            with self._building(key):
+                self._graphs[key] = self._capture(body)
             return
         graph, deltas = entry
         graph.replay()

@@ -34,6 +34,16 @@ eager writes on the one stream, ordered after whatever is in flight.
 the row reservation made at insert.  ``rollback`` commits a speculative
 verify's accepted rows and sweeps the rest; ``rollback_sweeps`` counts the
 sweeps applied to the pool.
+
+Observability (the reference's, from the scheduler's telemetry bundle and
+flight recorder): with ``metrics=`` the pool keeps occupancy gauges
+(``kv_slots_in_use``, ``kv_pool_bytes``, ``kv_free_pages`` — its ``min``
+is the low-water mark —, ``kv_pages_in_use``, ``kv_shared_pages``) and
+counters (``kv_rollback_sweeps``, ``kv_cow_copies``) on every host-side
+accounting change; with ``flight=`` each page decision lands as a
+``kv_acquire`` / ``kv_insert`` / ``kv_map`` / ``kv_ref`` / ``kv_deref`` /
+``kv_release`` event built from host state alone (``flight_label`` tags a
+second pool's events).
 """
 from __future__ import annotations
 
@@ -52,7 +62,12 @@ _PRISTINE = {"kpos": paging.KPOS_SENTINEL, "bt": paging.SENTINEL_PAGE}
 class SlotKVCache:
     def __init__(self, cfg, n_slots: int, max_seq: int, dtype=None,
                  page: int | None = None, n_pages: int | str | None = None,
-                 device="cuda"):
+                 device="cuda", metrics=None, metrics_labels=None, flight=None,
+                 flight_label: str | None = None):
+        self._flight = flight
+        self._flight_pool = flight_label
+        self._m_slots = self._m_free_pages = self._m_used_pages = None
+        self._m_rollbacks = self._m_shared = self._m_cow = None
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_seq = max_seq
@@ -74,6 +89,33 @@ class SlotKVCache:
             self._page_ref = np.zeros((self.n_pages,), np.int64)
         self.cache = None
         self.reset_all()
+        if metrics is not None:
+            lb = dict(metrics_labels or {})
+            self._m_slots = metrics.gauge("kv_slots_in_use", labels=lb)
+            self._m_rollbacks = metrics.counter("kv_rollback_sweeps", labels=lb)
+            metrics.gauge("kv_pool_bytes", labels=lb).set(self.pool_bytes())
+            if self.paged:
+                self._m_free_pages = metrics.gauge("kv_free_pages", labels=lb)
+                self._m_used_pages = metrics.gauge("kv_pages_in_use", labels=lb)
+                self._m_shared = metrics.gauge("kv_shared_pages", labels=lb)
+                self._m_cow = metrics.counter("kv_cow_copies", labels=lb)
+            self._observe_occupancy()
+
+    def _emit(self, kind: str, **data) -> None:
+        if self._flight is not None:
+            if self._flight_pool is not None:
+                data["pool"] = self._flight_pool
+            self._flight.emit(kind, **data)
+
+    def _observe_occupancy(self) -> None:
+        if self._m_slots is None:
+            return
+        self._m_slots.set(self.n_slots - len(self._free))
+        if self._m_free_pages is not None:
+            free = self.n_free_pages
+            self._m_free_pages.set(free)
+            self._m_used_pages.set(self.n_alloc_pages - free)
+            self._m_shared.set(self.n_shared_pages)
 
     # -- accounting -----------------------------------------------------------
 
@@ -122,6 +164,8 @@ class SlotKVCache:
         for p in pages:
             assert self._page_ref[p] >= 1, f"page {p} is free, cannot share"
             self._page_ref[p] += 1
+        if pages:
+            self._emit("kv_ref", pages=[int(p) for p in pages])
 
     def deref_pages(self, pages) -> int:
         """Drop one reference per page.  Pages whose last reference drops
@@ -134,9 +178,15 @@ class SlotKVCache:
             self._page_ref[p] -= 1
             if self._page_ref[p] == 0:
                 freed.append(p)
+        if pages:
+            # `freed` is exactly the sweep set: pages whose last reference
+            # just dropped
+            self._emit("kv_deref", pages=[int(p) for p in pages],
+                       freed=[int(p) for p in freed])
         if freed:
             zoo.paged_sweep(self.cfg, self.cache, self._ids(freed))
             self._push_pages(freed)
+            self._observe_occupancy()
         return len(freed)
 
     @property
@@ -204,7 +254,10 @@ class SlotKVCache:
     def acquire(self) -> int:
         if not self._free:
             raise RuntimeError("no free slots")
-        return self._free.pop(0)
+        slot = self._free.pop(0)
+        self._emit("kv_acquire", slot=slot)
+        self._observe_occupancy()
+        return slot
 
     def insert(self, slot: int, cache: dict, length: int, row: int = 0,
                reserve: int | None = None) -> None:
@@ -230,8 +283,11 @@ class SlotKVCache:
         else:
             for name, leaf in self.cache.items():
                 leaf[:, slot] = cache[name][:, row].to(leaf.dtype)
+        self._emit("kv_insert", slot=slot, rows=length, reserve=reserve,
+                   pages=([int(p) for p in self._slot_pages[slot]] if self.paged else []))
         self._slot_cap[slot] = reserve
         self.slot_len[slot] = length
+        self._observe_occupancy()
 
     def map_slot(self, slot: int, shared_pages, shared_rows: int, reserve: int,
                  cow_src: int | None = None, cow_rows: int = 0) -> list[int]:
@@ -276,9 +332,16 @@ class SlotKVCache:
             # full shared chain
             zoo.paged_copy_page(self.cfg, self.cache, fresh[0], cow_src, cow_rows)
             self.cow_copies += 1
+            if self._m_cow is not None:
+                self._m_cow.inc()
         self._slot_pages[slot] = pages
         self._slot_cap[slot] = reserve
         self.slot_len[slot] = mapped_rows
+        self._emit("kv_map", slot=slot, shared=[int(p) for p in shared_pages],
+                   fresh=[int(p) for p in fresh],
+                   cow_src=None if cow_src is None else int(cow_src),
+                   cow_rows=int(cow_rows), rows=mapped_rows, reserve=reserve)
+        self._observe_occupancy()
         return pages
 
     def release(self, slot: int) -> None:
@@ -288,21 +351,26 @@ class SlotKVCache:
         and freed: a page the prefix index retains, or another slot still
         maps, keeps its rows.  The slot's block table resets either way."""
         if self.paged:
+            pages = self._slot_pages.pop(slot, [])
             freed = []
-            for p in self._slot_pages.pop(slot, []):
+            for p in pages:
                 assert self._page_ref[p] >= 1, f"page {p} double-freed"
                 self._page_ref[p] -= 1
                 if self._page_ref[p] == 0:
                     freed.append(p)
             zoo.paged_release(self.cfg, self.cache, slot, self._ids(freed))
             self._push_pages(freed)
+            self._emit("kv_release", slot=slot, pages=[int(p) for p in pages],
+                       freed=[int(p) for p in freed])
         else:
             pristine = self.template(1)
             for name, leaf in self.cache.items():
                 leaf[:, slot] = pristine[name][:, 0]
+            self._emit("kv_release", slot=slot, pages=[], freed=[])
         self.slot_len[slot] = 0
         self._slot_cap[slot] = 0
         self._free.append(slot)
+        self._observe_occupancy()
 
     def rollback(self, pos0, keep, n_written: int, undo=None) -> None:
         """Speculative commit/rollback, in place: of the ``n_written`` rows a
@@ -318,12 +386,17 @@ class SlotKVCache:
                            torch.as_tensor(pos0, dtype=torch.int32, device=dev),
                            torch.as_tensor(keep, dtype=torch.int32, device=dev), n_written)
         self.rollback_sweeps += 1
+        if self._m_rollbacks is not None:
+            self._m_rollbacks.inc()
 
     def note_scan_rollbacks(self, n: int) -> None:
         """Count `n` rollback sweeps the scheduler's fused loop applied
         through `zoo.cache_rollback` itself, so ``rollback_sweeps`` means
-        "sweeps applied to the pool" in both modes."""
+        "sweeps applied to the pool" in both modes (``kv_rollback_sweeps``
+        too)."""
         self.rollback_sweeps += n
+        if self._m_rollbacks is not None and n:
+            self._m_rollbacks.inc(n)
 
     def reset_all(self) -> None:
         """Every slot and page free, the pool pristine: allocated on the
@@ -344,3 +417,4 @@ class SlotKVCache:
         self.slot_len = np.zeros((self.n_slots,), np.int64)
         self._slot_cap = np.zeros((self.n_slots,), np.int64)
         self.rollback_sweeps = 0
+        self._observe_occupancy()

@@ -57,14 +57,19 @@ class _Node:
 
 
 class PrefixIndex:
-    def __init__(self, page: int):
+    def __init__(self, page: int, flight=None):
         self.page = page
         self._root = _Node((), -1, None)
         self._clock = 0
         self.n_pages = 0            # nodes (= index-referenced pages)
         self.evictions = 0          # pages dropped under free-list pressure
-        # the reference's flight-recorder events (prefix_match,
-        # prefix_register, prefix_evict) come with ROADMAP Queue 1 item 7
+        # flight recorder (serve/flightrec): match lengths, retention
+        # registrations and evict / shield decisions as typed events
+        self._flight = flight
+
+    def _emit(self, kind: str, **data) -> None:
+        if self._flight is not None:
+            self._flight.emit(kind, **data)
 
     def _tick(self) -> int:
         self._clock += 1
@@ -103,6 +108,10 @@ class PrefixIndex:
             if donor is not None:
                 # touching the donor keeps a hot divergence point resident
                 donor.last_used = self._tick()
+        if ids or cow_rows:
+            # how many full pages / copy-on-write rows this prompt can reuse
+            # (misses stay silent: they carry no decision)
+            self._emit("prefix_match", pages=len(ids), rows=i, cow_rows=cow_rows)
         return PrefixMatch(ids, i, cow_src, cow_rows)
 
     # -- registration --------------------------------------------------------
@@ -116,7 +125,7 @@ class PrefixIndex:
         physical twin stays owned by the slot alone.  Returns the number of
         pages newly indexed."""
         page = self.page
-        node, new = self._root, 0
+        node, new, new_ids = self._root, 0, []
         for p in range(len(tokens) // page):
             block = tuple(int(t) for t in tokens[p * page:(p + 1) * page])
             child = node.children.get(block)
@@ -126,8 +135,12 @@ class PrefixIndex:
                 kv.ref_pages([child.page_id])
                 self.n_pages += 1
                 new += 1
+                new_ids.append(child.page_id)
             child.last_used = self._tick()
             node = child
+        if new:
+            # retention references taken: these pages now outlive their slot
+            self._emit("prefix_register", pages=new_ids, total=self.n_pages)
         return new
 
     # -- eviction ------------------------------------------------------------
@@ -159,12 +172,22 @@ class PrefixIndex:
         private page.  Returns pages actually freed."""
         protect = set(protect)
         freed = 0
+        dropped: list[int] = []
+        shielded: list[int] = []
         while freed < n_pages:
-            cands = [n for n in self._leaves()
+            leaves = self._leaves()
+            cands = [n for n in leaves
                      if kv.page_ref(n.page_id) == 1 and n.page_id not in protect]
             if not cands:
+                # leaves that would have been evictable but for the shield
+                shielded = sorted(n.page_id for n in leaves
+                                  if kv.page_ref(n.page_id) == 1 and n.page_id in protect)
                 break
-            freed += self._drop(min(cands, key=lambda n: n.last_used), kv)
+            victim = min(cands, key=lambda n: n.last_used)
+            dropped.append(victim.page_id)
+            freed += self._drop(victim, kv)
+        self._emit("prefix_evict", need=n_pages, freed=freed, dropped=dropped,
+                   shielded=shielded)
         return freed
 
     def clear(self, kv) -> int:

@@ -7,8 +7,9 @@ and the per-request / aggregate statistics: TTFT (submit -> first token),
 decode tokens/s, packed-weight bytes per decode token, and the
 speculative-decoding counts (verify steps, drafts proposed and accepted)
 and the prefix-sharing ones (prompt rows served from shared pages,
-extension-prefill chunks, the hit rate).  The per-request weight-share
-statistic waits for its slice.
+extension-prefill chunks, the hit rate), each request's share of the
+packed-weight reads its batches amortised, and its lifecycle spans when
+the scheduler serves with telemetry on.
 """
 from __future__ import annotations
 
@@ -64,6 +65,13 @@ class Request:
     admit_time: float = 0.0
     first_token_time: float = 0.0
     finish_time: float = 0.0
+    # lifecycle span events (telemetry.SpanEvent), populated when the
+    # scheduler serves with telemetry enabled: queued -> prefill[bucket]
+    # -> decode, exportable via TraceRecorder.chrome_trace
+    spans: list = dataclasses.field(default_factory=list, repr=False)
+    # sum over this request's decode steps of 1/(active slots that step):
+    # its share of the whole-model weight reads the batch amortises
+    shared_decode_steps: float = 0.0
     # --- prefix sharing + chunked prefill (Scheduler(prefix_share=...,
     # prefill_chunk=...)) ---
     prefix_hit_tokens: int = 0     # prompt rows served from shared pages
@@ -89,6 +97,10 @@ class Request:
     def tokens_per_verify_step(self) -> float:
         """Decode tokens emitted per verify forward (> 1 = speculation won)."""
         return (self.n_generated - 1) / max(self.spec_verify_steps, 1)
+
+    def weight_bytes_per_token(self, packed_param_bytes: int) -> float:
+        """This request's share of packed-weight reads per token."""
+        return packed_param_bytes * self.shared_decode_steps / max(self.n_generated, 1)
 
     @property
     def ttft(self) -> float:
@@ -174,6 +186,10 @@ class ServeStats:
         """Packed-weight bytes read per decode token under speculation: one
         packed read per verify step over every token it emitted."""
         return self.packed_param_bytes * self.verify_steps / max(self.decode_tokens, 1)
+
+    @property
+    def weight_bytes_ratio(self) -> float:
+        return self.packed_param_bytes / max(self.dense_param_bytes, 1)
 
     @property
     def weight_bytes_per_token(self) -> float:

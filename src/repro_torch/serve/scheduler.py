@@ -62,8 +62,18 @@ rejected speculation).  The extension program is a captured graph too,
 keyed (width bucket, sample, stochastic) as the reference's jit; mapping,
 copy-on-write and the eviction sweeps are eager writes between replays.
 
-What waits for later slices: the model drafter, telemetry, the flight
-recorder and multi-device meshes.
+Observability, as the reference threads it: `telemetry=` (serve/telemetry)
+keeps the registry's counters always (prefill programs built, prefix hit
+tokens, chunks, overlap admissions, spec dispatches) and, when enabled,
+times admission, prefill, decode and the host gap into histograms and
+records request-lifecycle spans, all from host clocks at the sync points
+the scheduler already has; `flightrec=` (serve/flightrec) records every
+admission, page, prefix, spec and dispatch decision as an event built
+from host state, for replay and first-divergence diffs.  Neither adds a
+sync, and nothing of theirs runs inside a captured body: a body runs only
+when its program is built, so per-step instruments sit around the replay.
+
+What waits for later slices: the model drafter and multi-device meshes.
 """
 from __future__ import annotations
 
@@ -73,15 +83,18 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import perf_knobs
 from repro_torch.core.types import PackedHiNM
 from repro_torch.device import resolve_device, to_device
 from repro_torch.models import zoo
 from repro_torch.serve import prng, sampler
 from repro_torch.serve import spec as spec_mod
+from repro_torch.serve.flightrec import resolve_flightrec
 from repro_torch.serve.graphs import GraphCache
 from repro_torch.serve.kv import SlotKVCache
 from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.request import Request, RequestState, ServeStats
+from repro_torch.serve.telemetry import resolve_telemetry
 
 
 def param_bytes(model) -> tuple[int, int]:
@@ -105,7 +118,8 @@ class Scheduler:
                  page: int | None = 64, n_pages: int | str | None = "auto",
                  spec: spec_mod.SpecConfig | None = None, packed: str = "auto",
                  prefix_share: bool | str = "auto", prefill_chunk: int | None = None,
-                 async_admission: bool | str = "auto", device="cuda"):
+                 async_admission: bool | str = "auto", device="cuda", telemetry=None,
+                 flightrec=None):
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown admission policy {policy!r}")
         if async_admission == "auto":
@@ -121,6 +135,36 @@ class Scheduler:
                 "state, no sliding window); see ROADMAP.md Queue 1 item 8")
         self.device = resolve_device(device)
         self.cfg = cfg
+        # observability bundle (serve/telemetry): None/"auto" defers to
+        # KNOBS.telemetry (off by default).  The registry is live either
+        # way: the instruments counted per program built or per decision
+        # cost nothing per step; `enabled` gates the wall-clock histograms
+        # and the request spans
+        self.telemetry = resolve_telemetry(telemetry)
+        # flight recorder (serve/flightrec): off by default; True builds a
+        # fresh recorder, an instance is shared as it is.  Its Chrome-trace
+        # instants engage only when telemetry records spans anyway
+        self.flight = resolve_flightrec(
+            flightrec, tracer=self.telemetry.tracer if self.telemetry.enabled else None)
+        m = self.telemetry.registry
+        self._m_prefill_traces = m.counter("serve_prefill_traces")
+        self._m_admit_wait = m.histogram("serve_admission_wait_seconds")
+        self._m_step = m.histogram("serve_decode_step_seconds")
+        self._m_host_gap = m.histogram("serve_host_gap_seconds")
+        self._m_spec_draft = m.histogram("serve_spec_draft_seconds")
+        self._m_spec_verify = m.histogram("serve_spec_verify_seconds")
+        self._m_spec_accept = m.histogram("serve_spec_window_acceptance", lo=1e-4,
+                                          growth=1.2, n_buckets=50)
+        self._m_hit_tokens = m.counter("serve_prefix_hit_tokens")
+        self._m_chunks = m.counter("serve_prefill_chunks")
+        self._m_evictions = m.counter("serve_prefix_evictions")
+        # programs the spec phase launches or replays (the fused loop is one
+        # per step, the unfused chain 3 per cycle); admission groups whose
+        # prefill was dispatched under a chunk in flight; blocking host syncs
+        # issued under a chunk in flight (the async path's canary: 0)
+        self._m_spec_dispatch = m.counter("serve_spec_dispatches")
+        self._m_overlap_admit = m.counter("serve_overlap_admissions")
+        self._m_inflight_syncs = m.counter("serve_inflight_syncs")
         # serve-time weight packing (one-time, here at construction, in
         # place on `params`): "pack" routes every planned q/k/v/o + MLP
         # projection through hinm_spmm; "auto" serves the weights as given
@@ -141,7 +185,18 @@ class Scheduler:
         if spec is not None:
             self._check_spec(spec)
         self.kv = SlotKVCache(cfg, max_slots, max_seq, page=page, n_pages=n_pages,
-                              device=self.device)
+                              device=self.device, metrics=m, flight=self.flight)
+        # paged-attention backend, resolved once per scheduler; every
+        # program runs under it (`_program`).  A stripe pool never reaches
+        # the K2 path
+        requested = perf_knobs.KNOBS.paged_attn
+        defer = None if self.kv.paged else "pool-not-paged"
+        self.paged_attn = requested if defer is None else "off"
+        if defer is not None:
+            m.counter("serve_paged_attn_deferred", labels={"reason": defer}).inc()
+        if self.flight is not None:
+            self.flight.emit("dispatch", requested=requested, backend=self.paged_attn,
+                             defer=defer)
         # prefix sharing and chunked prefill ride the multi-token decode
         # write path (`zoo.extend_step`): a paged pool, a family whose K/V
         # rows are per-(token, position), and the continuous policy.  "auto"
@@ -165,7 +220,8 @@ class Scheduler:
                     f"policy={policy!r})")
         self.prefix_share = bool(prefix_share)
         self.prefill_chunk = prefill_chunk
-        self.prefix = PrefixIndex(self.kv.page) if self.prefix_share else None
+        self.prefix = (PrefixIndex(self.kv.page, flight=self.flight) if self.prefix_share
+                       else None)
         # slots mid-extension-prefill: they hold pages but no decode lane
         self._prefilling: dict[int, Request] = {}
         self._extend_io: dict[int, dict] = {}
@@ -177,8 +233,7 @@ class Scheduler:
         self._pending_slots = 0
         self._pending_pages = 0
         self._chunk_in_flight = False
-        self._overlap_groups = 0        # groups whose prefill overlapped a chunk
-        self.graphs = GraphCache(self.device)
+        self.graphs = GraphCache(self.device, on_build=self._on_build)
         self._prefill_io: dict[tuple[int, int], dict] = {}
         self._queue: collections.deque[Request] = collections.deque()
         self._running: dict[int, Request] = {}
@@ -187,6 +242,35 @@ class Scheduler:
         self._reset_state(rng_seed)
         pb, db = param_bytes(params)
         self.stats = ServeStats(0.0, 0.0, 0, pb, db)
+        if self.flight is not None:
+            # configuration fingerprint: a replay on a scheduler built
+            # otherwise diverges here, at its first event
+            spec_cfg = None if spec is None else {
+                "k": spec.k, "fused": bool(spec.fused), "cycles": self._spec_cycles,
+                "drafter": self.drafter.kind}
+            self.flight.emit(
+                "config", family=cfg.family, vocab=int(cfg.vocab), max_slots=max_slots,
+                max_seq=max_seq, decode_chunk=decode_chunk, policy=policy,
+                page=self.kv.page if self.kv.paged else None,
+                n_pages=self.kv.n_pages if self.kv.paged else None, bucket=True,
+                packed=packed, paged_attn=self.paged_attn, prefix_share=self.prefix_share,
+                prefill_chunk=self.prefill_chunk, async_admission=self.async_admission,
+                rng_seed=rng_seed, sharded=False, spec=spec_cfg)
+
+    def _on_build(self, key) -> None:
+        """`GraphCache` is building `key`'s program: a prefill program counts
+        in ``serve_prefill_traces`` (the reference counts its traces)."""
+        if key[0] == "prefill":
+            self._m_prefill_traces.inc()
+
+    def _program(self, key, body) -> None:
+        """Run `body` as `key`'s program (`GraphCache.run`) under this
+        scheduler's paged-attention backend.  The knob is read when the body
+        runs, which is only while a program is built on the card."""
+        def run():
+            with perf_knobs.knobs(paged_attn=self.paged_attn):
+                body()
+        self.graphs.run(key, run)
 
     def _check_spec(self, spec) -> None:
         """Validate a SpecConfig, resolve its drafter and the cycle count."""
@@ -265,6 +349,9 @@ class Scheduler:
         self._match.fill_(True)
         self._key.copy_(prng.PRNGKey(rng_seed, device=self.device))
         self._active_host[:] = False
+        # the host clock at the last decode sync: the gap until the next
+        # dispatch is host time (admission, harvest, Python)
+        self._last_sync = None
 
     def reset(self, rng_seed: int = 0) -> None:
         """Drop all queued/running requests and restore pristine state, in
@@ -277,7 +364,7 @@ class Scheduler:
         self._pending_pages = 0
         self._chunk_in_flight = False
         if self.prefix is not None:
-            self.prefix = PrefixIndex(self.kv.page)
+            self.prefix = PrefixIndex(self.kv.page, flight=self.flight)
         self.kv.reset_all()
         self._reset_state(rng_seed)
         self.stats = ServeStats(0.0, 0.0, 0, self.stats.packed_param_bytes,
@@ -292,6 +379,10 @@ class Scheduler:
         if self.prefix is None:
             return 0
         return self.prefix.clear(self.kv)
+
+    def metrics_snapshot(self, include_global: bool = True) -> dict:
+        """JSON-able snapshot of every instrument this scheduler feeds."""
+        return self.telemetry.snapshot(include_global=include_global)
 
     @property
     def n_pending(self) -> int:
@@ -326,6 +417,17 @@ class Scheduler:
         req.state = RequestState.QUEUED
         req.submit_time = time.perf_counter()
         self._queue.append(req)
+        if self.flight is not None:
+            # the whole admission schedule rides in this one event: prompt,
+            # sampling parameters, seed, arrival (what `flightrec.replay`
+            # rebuilds the workload from)
+            p = req.params
+            self.flight.emit(
+                "submit", rid=req.rid, prompt=[int(t) for t in req.prompt],
+                arrival=req.arrival, max_new=p.max_new_tokens,
+                temperature=float(p.temperature), top_k=int(p.top_k), top_p=float(p.top_p),
+                eos=p.eos_id, seed=p.seed, spec_k=p.spec_k, spec_accept=p.spec_accept,
+                embeds=False)
 
     def _eff_eos(self, req: Request) -> int:
         if req.params.eos_id is not None:
@@ -351,6 +453,22 @@ class Scheduler:
         if req.finish_reason == "eos":
             self.stats.finished_at_eos += 1
         self.stats.observe_finish(req)
+        if self.telemetry.enabled and req.first_token_time:
+            # the decode span opened when the lane armed (an abandoned
+            # request still exports it, auto-closed); a request finished at
+            # its first token never armed one
+            open_span = next((sp for sp in reversed(req.spans)
+                              if sp.name == "decode" and sp.t1 is None), None)
+            if open_span is not None:
+                self.telemetry.tracer.end(open_span, req.finish_time, tokens=req.n_generated,
+                                          reason=req.finish_reason)
+            else:
+                self.telemetry.tracer.request_span(
+                    req, "decode", req.first_token_time, req.finish_time,
+                    tokens=req.n_generated, reason=req.finish_reason)
+        if self.flight is not None:
+            self.flight.emit("finish", rid=req.rid, reason=req.finish_reason,
+                             n=req.n_generated, tokens=list(req.tokens))
         finished.append(req)
 
     def _extension_plan(self, req: Request):
@@ -378,7 +496,9 @@ class Scheduler:
         one would free a page its block table is about to map."""
         short = need - self.kv.n_free_pages
         if short > 0 and self.prefix is not None:
-            self.prefix.evict(self.kv, short, protect=protect)
+            freed = self.prefix.evict(self.kv, short, protect=protect)
+            if freed:
+                self._m_evictions.inc(freed)
         return need <= self.kv.n_free_pages
 
     def _admit(self, finished: list[Request]) -> None:
@@ -489,10 +609,27 @@ class Scheduler:
                           topp=[r.params.top_p for r in padded])
         for name, vals in staged.items():
             io[name].copy_(to_device(torch.tensor(vals, dtype=io[name].dtype), self.device))
-        self.graphs.run(("prefill", s_b, k_b, stochastic), self._prefill_body(io, stochastic))
+        with self.telemetry.annotation("serve_prefill"):
+            self._program(("prefill", s_b, k_b, stochastic), self._prefill_body(io, stochastic))
         first = self._fetch(io["first"])
+        t1 = time.perf_counter()
         cache_k = io["cache"]
         self.stats.prefill_rows += sum(len(r.prompt) for r in group)
+        if self.telemetry.enabled:
+            tr = self.telemetry.tracer
+            self.telemetry.registry.histogram(
+                "serve_prefill_seconds", labels={"bucket": str(s_b)}).observe(t1 - t0)
+            tr.span("scheduler", f"prefill[b{s_b}]", t0, t1, requests=k, bucket=s_b)
+            for req in group:
+                self._m_admit_wait.observe(req.admit_time - req.submit_time)
+                tr.request_span(req, "queued", req.submit_time, req.admit_time)
+                tr.request_span(req, f"prefill[b{s_b}]", t0, t1)
+        if self.flight is not None:
+            # one event per admission group: its members, bucket geometry,
+            # and whether it was prepared under a chunk in flight (its
+            # `commit` events then land at the next step's start)
+            self.flight.emit("admit", group=[r.rid for r in group], bucket=s_b, width=k_b,
+                             overlap=bool(self.async_admission and self._chunk_in_flight))
         if self.async_admission and self._chunk_in_flight:
             # overlapped: its host time hid under the chunk, so it is not
             # charged to prefill_seconds.  Another group of this bucket and
@@ -505,7 +642,7 @@ class Scheduler:
             if self.kv.paged:
                 self._pending_pages += sum(self.kv.pages_needed(self._reserve_rows(r))
                                            for r in group)
-            self._overlap_groups += 1
+            self._m_overlap_admit.inc()
             return
         self.stats.prefill_seconds += time.perf_counter() - t0
         self._commit_group((group, first, cache_k), finished)
@@ -525,6 +662,8 @@ class Scheduler:
         insert the prefilled rows and arm the decode state."""
         group, first, cache_k = rec
         tc0 = time.perf_counter()
+        if self._chunk_in_flight:  # canary: committing under a chunk blocks
+            self._m_inflight_syncs.inc()
         (first_np,) = first()
         now = time.perf_counter()
         armed = []
@@ -537,6 +676,9 @@ class Scheduler:
             self.stats.tokens_generated += 1
             if (eos >= 0 and first_i == eos) or p.max_new_tokens <= 1:
                 # finished at its first token: never touch the slot pool
+                if self.flight is not None:
+                    self.flight.emit("commit", rid=req.rid, slot=None, first=first_i,
+                                     finished=True)
                 self._finish(req, finished)
                 continue
             slot = self.kv.acquire()
@@ -551,6 +693,14 @@ class Scheduler:
             req.state = RequestState.DECODING
             req.slot = slot
             self._running[slot] = req
+            if self.flight is not None:
+                self.flight.emit("commit", rid=req.rid, slot=slot, first=first_i,
+                                 finished=False)
+            if self.telemetry.enabled:
+                # the decode span: closed by `_finish`, or auto-closed at
+                # export if the request is abandoned
+                req.spans.append(self.telemetry.tracer.begin(
+                    f"req{req.rid}", "decode", t0=now, rid=req.rid))
         if armed:
             self._arm(armed)
         self.stats.prefill_seconds += time.perf_counter() - tc0
@@ -577,8 +727,21 @@ class Scheduler:
         req.prefix_hit_tokens = hit
         req.prefill_cursor = hit
         self.stats.prefix_hit_tokens += hit
+        if hit:
+            self._m_hit_tokens.inc(hit)
         req.slot = slot
         self._prefilling[slot] = req
+        if self.flight is not None:
+            # the prefix decision this admission rode: pages mapped by
+            # reference, the copy-on-write page, prompt rows never prefilled
+            self.flight.emit("ext_admit", rid=req.rid, slot=slot,
+                             shared=[int(p) for p in shared],
+                             cow_src=None if m is None else m.cow_src,
+                             cow_rows=0 if m is None else m.cow_rows, hit=hit)
+        if self.telemetry.enabled:
+            self._m_admit_wait.observe(req.admit_time - req.submit_time)
+            self.telemetry.tracer.request_span(req, "queued", req.submit_time,
+                                               req.admit_time)
 
     def _extend_buffers(self, width: int) -> dict:
         """The static inputs and first-token output of the extension graphs
@@ -657,17 +820,33 @@ class Scheduler:
         io = self._extend_buffers(w_b)
         for name, vals in (("tokens", tokens), *staged.items()):
             io[name].copy_(to_device(torch.from_numpy(vals), self.device))
-        self.graphs.run(("extend", w_b, sample, stochastic),
-                        self._extend_body(io, w_b, sample, stochastic))
-        first_np = self._fetch(io["first"])()[0] if sample else None  # one sync
+        with self.telemetry.annotation("serve_prefill_chunk"):
+            self._program(("extend", w_b, sample, stochastic),
+                          self._extend_body(io, w_b, sample, stochastic))
+            if sample and self._chunk_in_flight:  # canary: see _commit_group
+                self._m_inflight_syncs.inc()
+            first_np = self._fetch(io["first"])()[0] if sample else None  # one sync
         now = time.perf_counter()
         self.stats.prefill_seconds += now - t0
+        n_lanes = len(items)
+        self._m_chunks.inc(n_lanes)
+        if self.telemetry.enabled:
+            self.telemetry.registry.histogram(
+                "serve_prefill_chunk_seconds",
+                labels={"bucket": str(w_b)}).observe(now - t0, n=n_lanes)
+            self.telemetry.tracer.span("scheduler", f"prefill_chunk[b{w_b}]", t0, now,
+                                       lanes=n_lanes, bucket=w_b)
         for slot, req, width, last in items:
             req.prefill_cursor += width
             req.prefill_chunks += 1
             self.stats.prefill_chunks += 1
             self.stats.prefill_rows += width
             self.kv.slot_len[slot] += width
+            if self.flight is not None:
+                self.flight.emit("chunk", rid=req.rid, slot=slot, width=width,
+                                 cursor=req.prefill_cursor, last=last)
+            if self.telemetry.enabled:
+                self.telemetry.tracer.request_span(req, f"prefill_chunk[b{w_b}]", t0, now)
             if last:
                 self._complete_admission(slot, req, int(first_np[slot]), now, finished)
 
@@ -686,10 +865,17 @@ class Scheduler:
         del self._prefilling[slot]
         if self.prefix is not None:
             self.prefix.register(req.prompt, self.kv.slot_pages(slot), self.kv)
+        if self.telemetry.enabled:
+            self.telemetry.tracer.request_span(req, "prefill", req.admit_time, now,
+                                               hit_tokens=req.prefix_hit_tokens,
+                                               chunks=req.prefill_chunks)
         if (eos >= 0 and first_i == eos) or p.max_new_tokens <= 1:
             # unlike the group path this slot exists (its pages were mapped
             # before prefill), so release it; registered pages live on
             # through the index's references
+            if self.flight is not None:
+                self.flight.emit("graduate", rid=req.rid, slot=slot, first=first_i,
+                                 finished=True)
             self.kv.release(slot)
             self._finish(req, finished)
             return
@@ -697,6 +883,13 @@ class Scheduler:
         self._active_host[slot] = True
         req.state = RequestState.DECODING
         self._running[slot] = req
+        if self.flight is not None:
+            self.flight.emit("graduate", rid=req.rid, slot=slot, first=first_i,
+                             finished=False)
+        if self.telemetry.enabled:
+            # the decode span, as `_commit_group` opens it
+            req.spans.append(self.telemetry.tracer.begin(
+                f"req{req.rid}", "decode", t0=now, rid=req.rid))
 
     def _overlap_admit(self, finished: list[Request]) -> None:
         """Double-buffered admission: called between a decode dispatch and
@@ -821,31 +1014,46 @@ class Scheduler:
             self._spec_decode_and_harvest(finished)
             return
         t0 = time.perf_counter()
+        tele = self.telemetry.enabled
+        if tele and self._last_sync is not None:
+            self._m_host_gap.observe(t0 - self._last_sync)
         stochastic = self._stochastic()[0]
         guarded = bool(self._prefilling)
         if guarded:
             protect = np.zeros((self.max_slots,), bool)
             protect[list(self._prefilling)] = True
             self._protect.copy_(to_device(torch.from_numpy(protect), self.device))
-        self.graphs.run(("chunk", stochastic, guarded), self._chunk_body(stochastic, guarded))
-        fetched = self._fetch(self._emits, self._active)
-        self._overlap_admit(finished)        # chunk in flight: prepare admission
-        emits, active_np = fetched()         # the chunk's one sync
+        with self.telemetry.annotation("serve_decode_chunk", step=self.stats.decode_steps):
+            self._program(("chunk", stochastic, guarded), self._chunk_body(stochastic, guarded))
+            fetched = self._fetch(self._emits, self._active)
+            self._overlap_admit(finished)        # chunk in flight: prepare admission
+            emits, active_np = fetched()         # the chunk's one sync
         t1 = time.perf_counter()
         self.stats.decode_seconds += t1 - t0
         self.stats.decode_steps += self.decode_chunk
         self.stats.step_time_hist.observe((t1 - t0) / self.decode_chunk,
                                           n=self.decode_chunk)
+        if tele:
+            self._m_step.observe((t1 - t0) / self.decode_chunk, n=self.decode_chunk)
+            self.telemetry.tracer.span("scheduler", "decode_chunk", t0, t1,
+                                       steps=self.decode_chunk,
+                                       lanes=int(self._active_host.sum()))
+        self._last_sync = t1
+        width = np.maximum((emits >= 0).sum(axis=1), 1)  # active lanes per step
         for slot, req in list(self._running.items()):
             col = emits[:, slot]
-            new = col[col >= 0].tolist()
+            mine = col >= 0
+            new = col[mine].tolist()
             req.tokens.extend(new)
+            req.shared_decode_steps += float((1.0 / width)[mine].sum())
             self.stats.tokens_generated += len(new)
             self.stats.decode_tokens += len(new)
             # slot_len = actual cache rows: prompt rows + one row per
             # decode-emitted token (the newest token's row lands on the
             # step that feeds it back)
             self._grow(slot, len(new))
+            if self.flight is not None and new:
+                self.flight.emit("emit", rid=req.rid, slot=slot, tokens=new)
             if not active_np[slot]:
                 self._finish(req, finished)
                 self._release_slot(slot)
@@ -925,18 +1133,33 @@ class Scheduler:
         own (the drafts' host time kept apart) and the rollback through
         `SlotKVCache.rollback`, as the reference dispatches them."""
         if self.spec.fused:
-            self.graphs.run(("spec", stochastic, any_reject),
-                            self._spec_fused_body(stochastic, any_reject))
+            with self.telemetry.annotation("serve_spec_fused", step=self.stats.decode_steps):
+                self._program(("spec", stochastic, any_reject),
+                              self._spec_fused_body(stochastic, any_reject))
+            self._m_spec_dispatch.inc()
             self.kv.note_scan_rollbacks(self._spec_cycles)
             return
-        vout = self._verify_out
+        vout, tele = self._verify_out, self.telemetry.enabled
         for c in range(self._spec_cycles):
+            # host windows of the proposal and the verify programs (the one
+            # sync stays the harvest's)
             td0 = time.perf_counter()
-            self.graphs.run(("propose",), self._propose_body)
-            self.stats.spec_draft_seconds += time.perf_counter() - td0
-            self.graphs.run(("verify", stochastic, any_reject),
-                            self._verify_body(stochastic, any_reject))
-            self.kv.rollback(vout["pos0"], vout["cnt"], self.spec.k + 1)
+            with self.telemetry.annotation("serve_spec_draft"):
+                self._program(("propose",), self._propose_body)
+            td1 = time.perf_counter()
+            self.stats.spec_draft_seconds += td1 - td0
+            with self.telemetry.annotation("serve_spec_verify"):
+                self._program(("verify", stochastic, any_reject),
+                              self._verify_body(stochastic, any_reject))
+                self.kv.rollback(vout["pos0"], vout["cnt"], self.spec.k + 1)
+            # the unfused chain per cycle: proposal + verify + rollback
+            self._m_spec_dispatch.inc(3)
+            if tele:
+                td2 = time.perf_counter()
+                self._m_spec_draft.observe(td1 - td0)
+                self._m_spec_verify.observe(td2 - td1)
+                self.telemetry.tracer.span("scheduler", "spec_draft", td0, td1)
+                self.telemetry.tracer.span("scheduler", "spec_verify", td1, td2)
             for name in ("emits", "cnt", "judged"):
                 self._spec_out[name][c].copy_(vout[name])
 
@@ -946,7 +1169,12 @@ class Scheduler:
         sweeps the rejected rows — up to k+1 tokens per slot per packed
         weight read.  One host sync per scheduler step."""
         cycles = self._spec_cycles
+        tele = self.telemetry.enabled
         t0 = time.perf_counter()
+        if tele and self._last_sync is not None:
+            self._m_host_gap.observe(t0 - self._last_sync)
+        st = self.stats
+        dp0, da0 = st.draft_proposed, st.draft_accepted
         self._spec_cycles_run(*self._stochastic())
         out = self._spec_out
         fetched = self._fetch(out["emits"], out["cnt"], out["judged"], self._active)
@@ -954,14 +1182,21 @@ class Scheduler:
         # (cycles, slots, k+1), (cycles, slots) x 2, (slots,): the one sync
         emits_np, cnts_np, judged_np, active_np = fetched()
         t1 = time.perf_counter()
-        st = self.stats
         st.decode_seconds += t1 - t0
         st.decode_steps += cycles
         st.verify_steps += cycles
         st.step_time_hist.observe((t1 - t0) / cycles, n=cycles)
+        if tele:
+            self._m_step.observe((t1 - t0) / cycles, n=cycles)
+            self.telemetry.tracer.span("scheduler", "spec_cycles", t0, t1, cycles=cycles,
+                                       lanes=int(self._active_host.sum()))
+        self._last_sync = t1
+        # lanes that emitted in a cycle share that cycle's weight read
+        width = np.maximum((cnts_np > 0).sum(axis=1), 1)
         for slot, req in list(self._running.items()):
             cnt = cnts_np[:, slot]
-            rode = int((cnt > 0).sum())
+            rode_mask = cnt > 0
+            rode = int(rode_mask.sum())
             col = emits_np[:, slot, :].reshape(-1)
             new = col[col >= 0].tolist()
             # drafts whose verdict reached the stream (accepted ones, and an
@@ -970,6 +1205,7 @@ class Scheduler:
             proposed = int(judged_np[:, slot].sum())
             accepted = int(np.maximum(cnt - 1, 0).sum())
             req.tokens.extend(new)
+            req.shared_decode_steps += float((1.0 / width)[rode_mask].sum())
             req.spec_verify_steps += rode
             req.spec_proposed += proposed
             req.spec_accepted += accepted
@@ -981,11 +1217,21 @@ class Scheduler:
             # one committed cache row per emitted token, as in the chunk
             # loop (the rollback already swept the rejected rows)
             self._grow(slot, len(new))
+            if self.flight is not None and (new or proposed):
+                # the window's draft accounting beside the tokens it earned
+                self.flight.emit("emit", rid=req.rid, slot=slot, tokens=new,
+                                 proposed=proposed, accepted=accepted)
             if not active_np[slot]:
                 self._finish(req, finished)
                 self._release_slot(slot)
+        dp, da = st.draft_proposed - dp0, st.draft_accepted - da0
+        if self.flight is not None:
+            self.flight.emit("spec_window", cycles=cycles, proposed=dp, accepted=da)
+        if tele and dp:
+            # this harvest's acceptance (a drift here flags the drafter
+            # decaying over the workload, which the aggregate averages away)
+            self._m_spec_accept.observe(da / dp)
 
-    @torch.no_grad()
     def step(self) -> list[Request]:
         """One scheduler iteration: admit (extension admissions map their
         shared pages and start), advance every mid-prefill slot by one
@@ -996,7 +1242,21 @@ class Scheduler:
         commit first; the chunk then dispatches and `_admit` prepares the
         next groups while it runs.  An idle pool has nothing to overlap
         with: it admits and commits synchronously, so fresh slots decode
-        this very step."""
+        this very step.
+
+        An exception escaping a step triggers the flight recorder's crash
+        dump (pool, block tables, refcounts, requests in flight, the event
+        tail) and closes every open trace span, so both stay loadable."""
+        try:
+            return self._step_inner()
+        except Exception as exc:
+            if self.flight is not None:
+                self.flight.crash_dump(self, exc)
+            self.telemetry.tracer.finalize()
+            raise
+
+    @torch.no_grad()
+    def _step_inner(self) -> list[Request]:
         finished: list[Request] = []
         if self.async_admission:
             self._commit_admissions(finished)

@@ -72,6 +72,11 @@ def reference_async(setup):
     return [r.tokens for r in reqs], sched.stats, overlaps
 
 
+def _overlaps(sched):
+    """Admission groups prepared under a chunk in flight."""
+    return sched.telemetry.registry.value("serve_overlap_admissions")
+
+
 def _port_run(cfg, model, spec, async_admission):
     sched = serve.Scheduler(cfg, model, spec=spec, prefix_share=False,
                             async_admission=async_admission, device="cpu", **SCHED)
@@ -89,15 +94,15 @@ def test_async_streams_match_reference_and_sync(setup, reference_async, mode):
     assert sched.async_admission
     assert got == want
     # the overlap path engaged: groups were prepared under a chunk in flight
-    assert sched._overlap_groups > 0 and joverlaps > 0
+    assert _overlaps(sched) > 0 and joverlaps > 0
     if mode == "fused":
         # the same admission schedule and cycle count as the reference's
-        assert sched._overlap_groups == joverlaps
+        assert _overlaps(sched) == joverlaps
         for name in ("verify_steps", "lane_verify_steps", "draft_proposed",
                      "draft_accepted", "decode_tokens"):
             assert getattr(sched.stats, name) == getattr(jstats, name), name
     sync, got_sync = _port_run(cfg, model, spec, False)
-    assert got_sync == got and sync._overlap_groups == 0
+    assert got_sync == got and _overlaps(sync) == 0
     assert sched.kv.n_free_pages == sched.kv.n_alloc_pages
     assert not sched._pending_admits and sched._pending_slots == sched._pending_pages == 0
 
