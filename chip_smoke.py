@@ -77,6 +77,20 @@ Phases (each prints its own lines; any failure exits non-zero):
   7. agree   — teacher-forced prefill + 4 paged decode steps with the
                kernels, with the plain versions and with the masked-dense
                twin (torch.matmul): logits must agree.
+  8. train   — training runs no kernel of the three (masked-dense, dense
+               matmuls and PyTorch ops, as the reference's training): the
+               full-width qwen2-0.5b train step (bf16, AdamW, remat; batch
+               8 x 512 of SyntheticLMData, 30 steps; the loss must fall by
+               0.1): p50 step, tokens/s, peak memory and the model-FLOPs
+               share of the bf16 peak; microbatches=2 against one batch
+               (grads); the reduced config's three f32 steps on the card
+               against the CPU, and a TF32 control that each gate of that
+               comparison must refuse; the loop's retry, restore-and-skip and
+               resume against an uninterrupted run; gradual HiNM pruning at
+               full width cut to 2 layers, gyro (the virtual refresh) and
+               noperm: densities on schedule, the refresh's time, PermCache
+               hits, the masks' HiNM structure, recovery gaps; and
+               examples/train_hinm_lm_torch.py --steps 40 as a subprocess.
 The line before the last holds the per-kernel JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2006,7 +2020,7 @@ def overhead_runs(cfg, served) -> dict:
 # kernels, then what the step's "rest" is made of
 OP_CLASSES = (("K1 hinm_spmm", ("spmm_rows", "spmm_mma", "transpose_pad", "sum_splits")),
               ("K2 paged_decode_attn", ("split_kernel", "combine_kernel")),
-              ("GEMM (cuBLAS: lm_head)", ("nvjet", "gemm", "cutlass")),
+              ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass")),
               ("sort", ("Sort", "sort")), ("scan (cumsum)", ("scan",)),
               ("softmax", ("SoftMax", "softmax")), ("reduce (norm mean, argmax)", ("reduce",)),
               ("index / gather / scatter", ("index", "gather", "scatter")),
@@ -2046,7 +2060,7 @@ def device_ops(prof) -> list:
 
 
 def op_classes(rows, steps: int) -> dict:
-    """Device ms and launches per decode step by `OP_CLASSES`."""
+    """Device ms and launches per step by `OP_CLASSES`."""
     out = {}
     for ms, n, name in rows:
         cls = next((c for c, keys in OP_CLASSES if any(k in name for k in keys)), "other")
@@ -2273,6 +2287,431 @@ def agree_phase(cfg, model):
     return plain, dense
 
 
+# --------------------------------------------------------------------------
+# phase 8: training (masked-dense train step, loop, gradual pruning)
+# --------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 30
+# the parity tests' reduced qwen2-0.5b (tests/test_train.py), f32
+SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=128,
+             head_dim=16)
+# the card against the CPU and the resumed loop against an uninterrupted
+# one: relative to each leaf's max|x|, f32 (TF32 off); gradients, params
+# (relative L2 per leaf outside the gradients' noise floor)
+GRAD_TOL = 1e-5
+TRAIN_TOL = 1e-4
+# the card against the CPU, set between an f32 run's readings and a TF32
+# control's on an H100 (PERF.md, Findings): params elementwise outside the
+# noise floor (f32 1.0e-4, TF32 8.1e-2) and the losses (8.4e-8, 1.3e-5;
+# TRAIN_TOL would pass TF32's)
+ELEM_TOL = 1e-3
+LOSS_TOL = 1e-6
+# the microbatched step's grads against one batch's (bf16 params: each
+# microbatch's grads are rounded to bf16 before the f32 sum): the relative
+# L2 norm of the difference, per leaf
+MICRO_TOL = 2e-2
+
+
+def model_flops_per_step(cfg, b, s) -> float:
+    """Model FLOPs of one train step (PaLM's count, PERF.md §5): 6 x the
+    matmul parameters (every projection and the lm_head; the embedding
+    lookup is none) per token, plus 12 x L x H x hd x S per token for the
+    attention scores and values; remat's recomputed forward is not
+    counted."""
+    per_layer = cfg.d_model * (2 * cfg.attn_out_dim + 2 * cfg.kv_out_dim) + 3 * cfg.d_model * cfg.d_ff
+    n = cfg.n_layers * per_layer + cfg.d_model * cfg.vocab_padded
+    return float(b * s) * (6.0 * n + 12.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * s)
+
+
+def noise_floor(grads, floor=1e-3) -> dict:
+    """Per leaf, the elements whose gradient is nonzero but under `floor` x
+    the leaf's max|g|: sums that cancel to near zero (a k-bias coordinate whose RoPE
+    frequency barely turns over the sequence, an embedding row's rare
+    hits), whose few-percent change under another summation order (cuBLAS
+    vs the CPU, atomics in the embedding backward) AdamW turns into a
+    different step, since it divides by the gradient's own scale."""
+    from repro_torch import tree as T
+
+    return {name: ((g != 0) & (g.abs() < floor * g.abs().max())).cpu()
+            for name, g in T.leaves_with_names(grads)}
+
+
+def tree_rel_err(got, want, free=None, norm="max") -> float:
+    """Over leaves, the worst relative difference: max|got - want| /
+    max|want| (`norm="max"`) or ||got - want|| / ||want|| (`"l2"`);
+    `free` maps a leaf name to elements not compared."""
+    from repro_torch import tree as T
+
+    worst = 0.0
+    for (name, a), b in zip(T.leaves_with_names(got), T.leaves(want)):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        if free is not None and name in free:
+            a, b = a[~free[name]], b[~free[name]]
+        if norm == "l2":
+            err = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        else:
+            err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, err)
+    return worst
+
+
+def full_train_step(dev="cuda"):
+    """The dense train step at qwen2-0.5b's full width (24 layers, bf16,
+    AdamW, cosine_schedule(3e-3, 10, 30), remat) on SyntheticLMData(seed
+    0), batch 8 x 512, for TRAIN_STEPS steps: the loss must fall by 0.1
+    (tests/test_train.py's rule).  Then one step with microbatches=2 held
+    against one batch: loss and grads."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import load_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import zoo
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    from repro_torch.train import steps
+
+    cfg = load_arch("qwen2_0_5b")
+    params = zoo.params_of(cfg, zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    n_params = sum(p.numel() for p in T.leaves(params))
+    data = SyntheticLMData(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0, device=dev)
+    batches = [data.batch(i) for i in range(TRAIN_STEPS)]
+    step_fn, _ = steps.make_train_step(cfg, lr_fn=cosine_schedule(3e-3, 10, TRAIN_STEPS))
+    opt_state = make_optimizer("adamw").init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    p = params
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        p, opt_state, met, _ = step_fn(p, opt_state, None, b, i)
+        losses.append(float(met["loss"]))          # a sync: the step's work is done
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(ms[5:]))
+    # where a step goes: forward + backward (remat), then clip + AdamW
+    from repro_torch.optim import clip_by_global_norm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, g = steps.value_and_grad(p, cfg, None, batches[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g, _ = clip_by_global_norm(g, 1.0)
+    upd = make_optimizer("adamw").update(g, opt_state, p, 1e-3)
+    torch.cuda.synchronize()
+    split = dict(fwd_bwd_ms=(t1 - t0) * 1e3, clip_adamw_ms=(time.perf_counter() - t1) * 1e3)
+    del g, upd
+    # one step under torch.profiler: device ms and launches by op class
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        q = step_fn(p, opt_state, None, batches[0], TRAIN_STEPS)
+        float(q[2]["loss"])
+        split["profiled_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    del q
+    rows = device_ops(prof)
+    split.update(device_ms=sum(r[0] for r in rows), launches=sum(r[1] for r in rows),
+                 classes=op_classes(rows, 1))
+    flops = model_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    share = flops / (p50 * 1e-3) / PEAK_OPS[torch.bfloat16]
+    out = dict(params=n_params, losses=losses, p50_step_ms=p50,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (p50 * 1e-3), peak_bytes=peak,
+               model_flops=flops, mfu=share, first_step_ms=ms[0], **split)
+    print(f"train step, qwen2_0_5b full width ({n_params / 1e6:.1f}M params, bf16, AdamW, "
+          f"remat), batch {TRAIN_BATCH} x {TRAIN_SEQ}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over {TRAIN_STEPS} steps; p50 step {p50:.1f} ms (steps 5-"
+          f"{TRAIN_STEPS - 1}; first {ms[0]:.0f} ms), {out['tokens_per_s']:.0f} tokens/s, "
+          f"peak memory {peak / 2**30:.2f} GiB, model FLOPs {flops / 1e12:.2f} T/step = "
+          f"{share:.1%} of the dense bf16 peak; one forward + backward (remat) "
+          f"{split['fwd_bwd_ms']:.1f} ms, clip + AdamW {split['clip_adamw_ms']:.1f} ms",
+          flush=True)
+    print(f"  one step under torch.profiler: wall {split['profiled_wall_ms']:.1f} ms, device "
+          f"{split['device_ms']:.1f} ms in {split['launches']} launches; by class (ms / "
+          "launches): " + "; ".join(f"{c} {t:.1f} / {n:.0f}"
+                                    for c, (t, n) in split["classes"].items()), flush=True)
+    if not losses[-1] <= losses[0] - 0.1:
+        raise AssertionError(f"full-width loss did not fall by 0.1: {losses}")
+    del opt_state, p
+
+    # microbatches=2 against one batch, the same weights, f32 accumulation
+    b = batches[0]
+    l1, g1 = steps.accumulate_grads(params, cfg, None, b, 1)
+    l2, g2 = steps.accumulate_grads(params, cfg, None, b, 2, torch.float32)
+    rel = max(float((a.float() - c.float()).norm() / c.float().norm())
+              for a, c in zip(T.leaves(g2), T.leaves(g1)))
+    dl = abs(float(l2) - float(l1)) / abs(float(l1))
+    print(f"microbatches=2 vs 1 at full width: loss rel diff {dl:.2e}, grads max per-leaf "
+          f"||g2 - g1|| / ||g1|| {rel:.2e} (tol {MICRO_TOL:.0e})", flush=True)
+    if not (rel <= MICRO_TOL and dl <= 1e-3):
+        raise AssertionError(f"microbatched grads disagree: {rel}, loss {dl}")
+    out.update(micro_grad_rel=rel, micro_loss_rel=dl)
+    return out
+
+
+def small_setup(dev):
+    """The reduced config, its params (torch's generator on the CPU, seed 0,
+    then moved to `dev`) and SyntheticLMData(seed 1) at 4 x 32 on `dev`."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import load_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import zoo
+
+    cfg = load_arch("qwen2_0_5b").reduced(**SMALL)
+    params = zoo.params_of(cfg, zoo.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    data = SyntheticLMData(cfg.vocab, 32, 4, seed=1, device=dev)
+    return cfg, T.map(lambda t: t.to(dev), params), data
+
+
+def reduced_run(dev, tf32=False):
+    """The reduced config on `dev` (f32; TF32 for matmuls when `tf32`):
+    the first batch's gradients, then three AdamW steps.  Returns (params,
+    losses, step-0 grads)."""
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    from repro_torch.train import steps
+
+    cfg, p, data = small_setup(dev)
+    # after small_setup: its init pins TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    g0 = steps.value_and_grad(p, cfg, None, data.batch(0))[1]
+    step_fn, _ = steps.make_train_step(cfg, lr_fn=cosine_schedule(1e-2, 5, 100))
+    st, losses = make_optimizer("adamw").init(p), []
+    for i in range(3):
+        p, st, met, _ = step_fn(p, st, None, data.batch(i), i)
+        losses.append(float(met["loss"]))
+    if torch.backends.cuda.matmul.allow_tf32 != tf32:
+        raise AssertionError("the TF32 setting changed during the run")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    return p, losses, g0
+
+
+def card_vs_cpu():
+    """The reduced config, f32, the same weights and batches on the card and
+    on the CPU: the first batch's gradients within GRAD_TOL of each leaf's
+    max, then three AdamW steps: losses within LOSS_TOL, and outside the
+    gradients' noise floor each leaf's params within TRAIN_TOL in relative
+    L2 and within ELEM_TOL of the leaf's max elementwise.  A control run
+    on the card with TF32 matmuls must fail each of these gates: they tell
+    a lower-precision step from an f32 one."""
+    cpu = reduced_run("cpu")
+    free = noise_floor(cpu[2])
+    n_free = sum(int(m.sum()) for m in free.values())
+    read = {}
+    for name, tf32 in (("f32", False), ("tf32", True)):
+        p, losses, g0 = reduced_run("cuda", tf32)
+        read[name] = dict(
+            grad_rel=tree_rel_err(g0, cpu[2]),
+            param_rel=tree_rel_err(p, cpu[0], free, "l2"),
+            param_rel_max=tree_rel_err(p, cpu[0], free),
+            param_rel_all=tree_rel_err(p, cpu[0]),
+            loss_rel=max(abs(a - b) / abs(b) for a, b in zip(losses, cpu[1])))
+        r = read[name]
+        print(f"card ({name}) vs CPU, reduced qwen2 f32: step-0 grads max rel diff "
+              f"{r['grad_rel']:.3e} (tol {GRAD_TOL:.0e}); 3 AdamW steps: losses "
+              f"{r['loss_rel']:.3e} (tol {LOSS_TOL:.0e}); params outside the {n_free} noise-floor elements: L2 "
+              f"{r['param_rel']:.3e} (tol {TRAIN_TOL:.0e}), elementwise {r['param_rel_max']:.3e} "
+              f"(tol {ELEM_TOL:.0e}); with them {r['param_rel_all']:.3e}", flush=True)
+    f, c = read["f32"], read["tf32"]
+    if not (f["grad_rel"] <= GRAD_TOL and f["param_rel"] <= TRAIN_TOL
+            and f["param_rel_max"] <= ELEM_TOL and f["loss_rel"] <= LOSS_TOL):
+        raise AssertionError(f"card and CPU disagree: {f}")
+    if not (c["grad_rel"] > GRAD_TOL and c["param_rel"] > TRAIN_TOL
+            and c["param_rel_max"] > ELEM_TOL and c["loss_rel"] > LOSS_TOL):
+        raise AssertionError(f"a gate passes the TF32 control: {c}")
+    return dict(**f, noise_floor_elems=n_free, tf32_control=c)
+
+
+def loop_faults(root, dev="cuda"):
+    """The loop on the card (reduced config, f32): a failure at step 3 is
+    retried; a run to step 8 then resumed to 12 on the same directory ends
+    where an uninterrupted 12-step run does; two failures at step 6 restore
+    the step-4 checkpoint and skip the batch."""
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    from repro_torch.train import loop, steps
+
+    cfg, params, data = small_setup(dev)
+    step_fn, _ = steps.make_train_step(cfg, lr_fn=cosine_schedule(1e-2, 5, 100))
+    opt = make_optimizer("adamw")
+
+    def run(name, total, fails=None, seen=None):
+        fails = dict(fails or {})
+
+        def injector(step):
+            if fails.get(step, 0):
+                fails[step] -= 1
+                raise RuntimeError("injected failure")
+
+        state = loop.LoopState(params=params, opt_state=opt.init(params), masks=None)
+        lcfg = loop.LoopConfig(total_steps=total, checkpoint_every=4, log_every=100,
+                               checkpoint_dir=os.path.join(root, name))
+        return loop.run(state, step_fn, data.iterator(), lcfg, fail_injector=injector,
+                        on_step=None if seen is None else (lambda s, m: seen.update({s: m})))
+
+    whole = run("whole", 12)
+    first, resumed, skipped = {}, {}, {}
+    run("resumed", 8, {3: 1}, first)
+    state = run("resumed", 12, None, resumed)
+    run("skipped", 8, {6: 2}, skipped)
+    free = noise_floor(steps.value_and_grad(params, cfg, None, data.batch(0))[1])
+    rel = tree_rel_err(state.params, whole.params, free, "l2")
+    print(f"loop on the card: step 3 failed once, retried (loss {first[3]['loss']:.4f}); "
+          f"resumed at step {min(resumed)} (saved step 7), params vs the uninterrupted run "
+          f"L2 rel diff {rel:.2e} (tol {TRAIN_TOL:.0e}); two failures at step 6 -> "
+          f"skipped {bool(skipped[6].get('skipped'))}, loop ran to step {max(skipped)}",
+          flush=True)
+    if sorted(first) != list(range(8)) or first[3].get("skipped"):
+        raise AssertionError(f"retry failed: {sorted(first)}")
+    if sorted(resumed) != [8, 9, 10, 11] or not rel <= TRAIN_TOL:
+        raise AssertionError(f"resume: steps {sorted(resumed)}, rel {rel}")
+    if not skipped[6].get("skipped") or sorted(skipped) != list(range(8)):
+        raise AssertionError(f"restore-and-skip: {skipped.get(6)}")
+    return dict(resume_rel=rel, resumed_at=min(resumed))
+
+
+GRADUAL_LAYERS = 2      # cut from 24: the 8/8 virtual gyro refresh stays near a minute
+GRADUAL_STEPS = 40
+
+
+def hinm_structure_ok(mask, perm, hcfg) -> bool:
+    """A mask in the original layout, under its searched row permutation:
+    per V-row tile at most K columns survive, every row keeps K * N / M."""
+    m = mask.T[torch.as_tensor(perm, device=mask.device)]
+    k = hcfg.kept_columns(m.shape[1])
+    tiles = m.reshape(-1, hcfg.v, m.shape[1])
+    return (int(tiles.any(dim=1).sum(dim=1).max()) <= k
+            and bool((m.sum(dim=1) == k * hcfg.n // hcfg.m).all()))
+
+
+def gradual_run(method, dev="cuda", layers=GRADUAL_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """Gradual HiNM pruning at full width, depth cut to `layers`: vector
+    ramp to step 12, N:M (and, for gyro, the virtual refresh at
+    make_mask_schedule's 8/8 iterations) at 20, masks every 5, 40 steps.
+    Returns the densities at each event, the refresh, the recovery gap."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import load_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import zoo
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    from repro_torch.train import gradual, loop, pruning, steps
+
+    cfg = dataclasses.replace(load_arch("qwen2_0_5b"), n_layers=layers)
+    params = zoo.params_of(cfg, zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    sched = gradual.GradualSchedule(target=cfg.hinm, vector_end_step=12, nm_step=20,
+                                    update_every=5)
+    cb = gradual.make_mask_schedule(cfg, sched, method=method)
+    step_fn, opt = steps.make_train_step(cfg, lr_fn=cosine_schedule(3e-3, 10, GRADUAL_STEPS))
+    data = SyntheticLMData(cfg.vocab, seq, batch, seed=0, device=dev)
+    state = loop.LoopState(params=params, opt_state=opt.init(params), masks=None)
+    events, losses = [], []
+    for step in range(GRADUAL_STEPS):
+        t0 = time.perf_counter()
+        masks = cb(step, state)
+        if masks is not None:
+            state.masks = masks
+            leaves = T.leaves(masks)
+            dens = float(np.mean([float(m.float().mean()) for m in leaves]))
+            # the schedule's density as the masks realize it: K kept columns
+            # of each projection's n_in (a multiple of M), N of M of them
+            hcfg, nm = sched.config_at(step), sched.nm_active(step)
+            want = float(np.mean([hcfg.kept_columns(m.shape[-2]) / m.shape[-2]
+                                  * (hcfg.n / hcfg.m if nm else 1.0) for m in leaves]))
+            events.append(dict(step=step, density=dens, schedule=want,
+                               nominal=(1 - hcfg.vector_sparsity) * (
+                                   hcfg.n / hcfg.m if nm else 1.0),
+                               wall_s=time.perf_counter() - t0))
+        state.params, state.opt_state, met, _ = step_fn(state.params, state.opt_state,
+                                                        state.masks, data.batch(step), step)
+        losses.append(float(met["loss"]))
+    dense_best = min(losses[: GRADUAL_STEPS // 3])
+    final = float(np.mean(losses[-5:]))
+    out = dict(events=events, losses=losses, gap=final - dense_best, dense_best=dense_best,
+               final=final, hits=cb.perm_cache.hits, misses=cb.perm_cache.misses,
+               refreshes=[dict(step=e["step"], wall_s=e["wall_s"],
+                               searches=e["report"].searches_run,
+                               mean_retained=e["report"].mean_retained)
+                          for e in cb.refreshes])
+    if cb.refreshes:
+        # the masks stay the refresh's after the switch (the layout freezes)
+        rep = cb.refreshes[0]["report"]
+        blocks = pruning.per_block(state.masks, [n.path for _, n in zoo.perm_graph(cfg).instances()])
+        ok = [hinm_structure_ok(blocks[int(tag[7:tag.index("]")])][tag.split("/", 1)[1]],
+                                perm, cfg.hinm) for tag, perm in rep.out_perms.items()]
+        out.update(structure_ok=sum(ok), structure_n=len(ok))
+    return out
+
+
+def gradual_phase(dev="cuda", **kw):
+    runs = {m: gradual_run(m, dev, **kw) for m in ("gyro", "noperm")}
+    for method, r in runs.items():
+        ev = "; ".join(f"step {e['step']}: {e['density']:.4f} (schedule {e['schedule']:.4f}, "
+                       f"nominal {e['nominal']:.4f})" for e in r["events"])
+        print(f"gradual {method}, qwen2_0_5b full width cut to {GRADUAL_LAYERS} layers, "
+              f"{GRADUAL_STEPS} steps: mask density at each event {ev}", flush=True)
+        for e in r["events"]:
+            if abs(e["density"] - e["schedule"]) > 1e-3:
+                raise AssertionError(f"{method}: density off schedule at {e}")
+        if r["refreshes"]:
+            f = r["refreshes"][0]
+            print(f"  virtual gyro refresh at step {f['step']} (8/8 iterations): "
+                  f"{f['wall_s']:.1f} s, {f['searches']} searches, mean retained "
+                  f"{f['mean_retained']:.6f}; PermCache hits {r['hits']} misses "
+                  f"{r['misses']}; masks with the HiNM structure under their searched "
+                  f"permutations {r['structure_ok']}/{r['structure_n']}")
+            if r["structure_ok"] != r["structure_n"]:
+                raise AssertionError("a virtual mask lacks the HiNM structure")
+        print(f"  best dense-phase loss {r['dense_best']:.4f}, final {r['final']:.4f}, "
+              f"recovery gap {r['gap']:+.4f}")
+        if not np.isfinite(r["losses"]).all():
+            raise AssertionError(f"{method}: non-finite loss")
+    final = runs["noperm"]["events"][-1]
+    if abs(final["density"] - 0.25) > 1e-3:
+        raise AssertionError(f"density after the N:M switch {final['density']} != 0.25")
+    return runs
+
+
+def train_entry_point(root) -> dict:
+    """examples/train_hinm_lm_torch.py --scale tiny --steps 40 on the card
+    (exit 0, its three report lines)."""
+    script = os.path.join(ROOT, "examples", "train_hinm_lm_torch.py")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, script, "--scale", "tiny", "--steps", "40",
+                        "--ckpt", os.path.join(root, "entry")], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(OUT, "train_hinm_lm_torch.txt"), "w") as f:
+        f.write(p.stdout + "\n--- stderr ---\n" + p.stderr)
+    tail = "\n  ".join(p.stdout.strip().splitlines()[-3:])
+    print(f"train entry point (exit {p.returncode}, {wall:.1f} s):\n  {tail}", flush=True)
+    if p.returncode != 0 or "recovery gap" not in p.stdout:
+        raise AssertionError(f"examples/train_hinm_lm_torch.py failed (exit {p.returncode}): "
+                             f"{p.stderr[-2000:]}")
+    return dict(exit=p.returncode, wall_s=wall)
+
+
+def train_phase() -> dict:
+    """Training on the card, no fallback: the full-width step, microbatches,
+    the card against the CPU, the loop's faults and resume, gradual
+    pruning, the entry point."""
+    import tempfile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("train_phase needs a CUDA device")
+    t0 = time.perf_counter()
+    os.makedirs(OUT, exist_ok=True)
+    out = dict(step=full_train_step())
+    out["card_vs_cpu"] = card_vs_cpu()
+    with tempfile.TemporaryDirectory() as root:
+        out["loop"] = loop_faults(root)
+        out["gradual"] = gradual_phase()
+        out["entry_point"] = train_entry_point(root)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"train phase {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+T_START = time.perf_counter()
+
+
 def main() -> int:
     phase("1. device")
     if not torch.cuda.is_available():
@@ -2318,6 +2757,9 @@ def main() -> int:
 
     phase("7. agree")
     agree_phase(cfg, model)
+
+    phase("8. train")
+    trained = train_phase()
 
     k2_rep = next(c for c in k2 if c["case"] == "s=1 window=0" and c["dtype"] == "bfloat16")
     k2_verify = next(c for c in k2 if c["case"] == "verify s=4" and c["dtype"] == "bfloat16")
@@ -2418,6 +2860,19 @@ def main() -> int:
           "tok/s " + ", ".join(f"{k} {np.mean(v['decode_tok_s']):.1f}" for k, v in ov.items())
           + f"; entry point exits {[v['exit'] for v in observed['entry_point'].values()]}; "
           f"phase {observed['wall_s']:.1f} s")
+    st, gr, cvc = trained["step"], trained["gradual"], trained["card_vs_cpu"]
+    print(f"train: full-width step p50 {st['p50_step_ms']:.1f} ms, {st['tokens_per_s']:.0f} "
+          f"tokens/s, peak {st['peak_bytes'] / 2**30:.2f} GiB, {st['mfu']:.1%} of the bf16 "
+          f"peak in model FLOPs; loss {st['losses'][0]:.4f} -> {st['losses'][-1]:.4f}; "
+          f"microbatch grads {st['micro_grad_rel']:.1e}; card vs CPU grads "
+          f"{cvc['grad_rel']:.1e}, params {cvc['param_rel']:.1e} L2, "
+          f"{cvc['param_rel_max']:.1e} elementwise (TF32 control "
+          f"{cvc['tf32_control']['param_rel']:.1e}, {cvc['tf32_control']['param_rel_max']:.1e})"
+          f"; resume {trained['loop']['resume_rel']:.1e}"
+          f"; gradual recovery gap gyro {gr['gyro']['gap']:+.4f} noperm "
+          f"{gr['noperm']['gap']:+.4f} (refresh {gr['gyro']['refreshes'][0]['wall_s']:.1f} s); "
+          f"entry point exit {trained['entry_point']['exit']}; phase {trained['wall_s']:.1f} s")
+    print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as T
 from repro_torch.core.types import PackedHiNM
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -83,13 +85,71 @@ def _run_blocks(model, cfg, x, positions, cache=None, backend="auto", spec=False
     return x
 
 
-def forward(model: Transformer, cfg, tokens: torch.Tensor, backend: str = "auto"):
-    """Eval forward: pre-logits (B, S, D) (the loss projects vocab chunked)."""
+def forward(model: Transformer, cfg, tokens: torch.Tensor, backend: str = "auto",
+            remat: bool = False):
+    """Training / eval forward: pre-logits (B, S, D) (the loss projects
+    vocab chunked).  `remat` checkpoints each block (non-reentrant
+    `torch.utils.checkpoint`): the backward recomputes a block's
+    activations instead of keeping them, as the reference remats each layer
+    of its scan."""
     x = M.embed(model.embed, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    x = _run_blocks(model, cfg, x, positions, backend=backend)
+    if remat:
+        for blk in model.blocks:
+            x = checkpoint(blk, x, positions, cfg, None, backend, use_reentrant=False)
+    else:
+        x = _run_blocks(model, cfg, x, positions, backend=backend)
     return L.norm(model.ln_f, x, cfg)
+
+
+def _tree_of(mod: nn.Module) -> dict:
+    """A module's tensors as a nested dict (a packed weight is not one)."""
+    if any(isinstance(getattr(m, "w", None), PackedHiNM) for m in mod.modules()):
+        raise ValueError("params_of takes a dense model; unpack_params first")
+    out = dict(mod.named_buffers(recurse=False))
+    for name, child in mod.named_children():
+        out[name] = _tree_of(child)
+    return out
+
+
+def params_of(model: Transformer) -> dict:
+    """The model's dense tensors as the reference's params tree: ``embed``,
+    ``blocks`` (every leaf stacked over layers, ``(L, ...)``), ``ln_f``,
+    ``lm_head`` — new tensors, the model's stay as they were."""
+    tree = {name: T.map(torch.clone, _tree_of(child))
+            for name, child in model.named_children() if name != "blocks"}
+    per_block = [_tree_of(blk) for blk in model.blocks]
+    tree["blocks"] = T.map(lambda *xs: torch.stack(xs), per_block[0], *per_block[1:])
+    return tree
+
+
+def from_params(cfg, params: dict) -> Transformer:
+    """A model whose tensors are `params`' own: block i holds the layer-i
+    views of the stacked leaves, so autograd through its forward reaches
+    the tree's leaves, and nothing is copied."""
+    # one unbind per stacked leaf: its backward stacks the layers' grads
+    # once (indexing each layer would scatter into a zeroed full stack per
+    # layer)
+    blk = T.map(lambda t: t.unbind(0), params["blocks"])
+
+    def lin(node, i=None):
+        pick = (lambda a: a) if i is None else (lambda a: a[i])
+        b = node.get("b")
+        return M.Linear(pick(node["w"]), None if b is None else pick(b))
+
+    def norm(node, i=None):
+        pick = (lambda a: a) if i is None else (lambda a: a[i])
+        bias = node.get("bias")
+        return M.Norm(pick(node["scale"]), None if bias is None else pick(bias))
+
+    blocks = [Block(norm(blk["ln1"], i),
+                    L.Attention(*(lin(blk["attn"][n], i) for n in ("wq", "wk", "wv", "wo"))),
+                    norm(blk["ln2"], i),
+                    L.MLP(**{n: lin(node, i) for n, node in blk["mlp"].items()}))
+              for i in range(cfg.n_layers)]
+    return Transformer(M.Embed(params["embed"]["table"]), blocks,
+                       norm(params["ln_f"]), lin(params["lm_head"]))
 
 
 def logits_fn(model: Transformer, x: torch.Tensor) -> torch.Tensor:

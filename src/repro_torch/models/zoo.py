@@ -1,7 +1,8 @@
 """Family dispatch (port of `repro.models.zoo`) — the dense family only.
 
   init(cfg, generator, device)            -> model
-  forward(model, cfg, tokens)             -> pre-logits (B, S, D)
+  forward(model, cfg, tokens, remat=)     -> pre-logits (B, S, D)
+  params_of / from_params                 -> the reference's params tree
   logits_fn(model, cfg, x)                -> vocab projection
   make_cache(cfg, batch, max_seq, ...)    -> decode cache
   prefill / decode_step                   -> serving
@@ -32,8 +33,19 @@ def init(cfg, generator=None, device="cuda"):
     return model_for(cfg).init(cfg, generator, device)
 
 
-def forward(model, cfg, tokens, backend: str = "auto"):
-    return model_for(cfg).forward(model, cfg, tokens, backend)
+def forward(model, cfg, tokens, backend: str = "auto", remat: bool = False):
+    return model_for(cfg).forward(model, cfg, tokens, backend, remat)
+
+
+def params_of(cfg, model) -> dict:
+    """The dense model's tensors as the reference's params tree, layer
+    leaves stacked (L, ...): the training state (`train.steps`)."""
+    return model_for(cfg).params_of(model)
+
+
+def from_params(cfg, params: dict):
+    """A model over the params tree's own tensors (views, no copies)."""
+    return model_for(cfg).from_params(cfg, params)
 
 
 def logits_fn(model, cfg, x):

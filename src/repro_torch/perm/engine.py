@@ -322,9 +322,49 @@ class ModelPermEngine:
         self.report.phase_seconds.update(search=t1 - t0, realize=time.perf_counter() - t1)
         return out
 
-    def run_virtual(self, params):
-        """Mask-only pruning in the original layout: used by gradual
-        training only, so it is ported with the training slice."""
-        raise NotImplementedError(
-            "mask-only (virtual) pruning is ported with the training slice; "
-            "see ROADMAP.md Queue 1 item 9")
+    def run_virtual(self, model):
+        """Mask-only pruning: searches in the ORIGINAL layout, each mask
+        mapped back through the inverse row perm; the model untouched, no
+        packing.  One work item per planned node, over all of a container's
+        layers in turn with the node's own generator; items run on the
+        thread pool.  Returns one {path: stored-orientation mask} dict per
+        block; the report keeps each search's row permutation, under which
+        the mask has the HiNM structure."""
+        instances = list(self.graph.instances())
+        rngs = _spawn_rngs(self.rng, len(instances))
+        misses0 = self.cache.misses if self.cache else 0
+        hits0 = self.cache.hits if self.cache else 0
+
+        def one_instance(args):
+            (key, node), rng = args
+            outs = []
+            for blk in getattr(model, key):
+                w = nn.get_path(blk, node.path).w
+                perm, col_order = self._search_one(node, w, [], None, rng, virtual=True)
+                r = realize.realize_matrix(w.T, perm, col_order, self.hcfg, pack=False)
+                mask = realize.mask_to_original_rows(r.mask_p, perm, axis=0)
+                outs.append((mask.T.contiguous(), r.retained, perm))
+            return outs
+
+        t0 = time.perf_counter()
+        work = list(zip(instances, rngs))
+        if self.workers <= 1 or len(work) <= 1:
+            results = [one_instance(a) for a in work]
+        else:
+            with ThreadPoolExecutor(max_workers=self.workers) as ex:
+                results = list(ex.map(one_instance, work))
+
+        masks: list[dict[str, torch.Tensor]] = [{} for _ in results[0]]
+        for ((key, node), _), outs in zip(work, results):
+            for i, (mask, _, perm) in enumerate(outs):
+                masks[i][node.path] = mask
+                self.report.out_perms[f"{key}[{i}]/{node.path}"] = perm
+            self.report.per_layer.append(
+                (f"{key}/{node.path}", float(np.mean([r for _, r, _ in outs]))))
+        if self.cache:
+            self.report.cache_hits += self.cache.hits - hits0
+            self.report.searches_run += self.cache.misses - misses0
+        else:
+            self.report.searches_run += len(work)
+        self.report.phase_seconds["search"] = time.perf_counter() - t0
+        return masks

@@ -19,12 +19,15 @@ from __future__ import annotations
 import copy
 
 import numpy as np
+import torch
 
+from repro_torch import tree as T
 from repro_torch.models import module as nn
 from repro_torch.perm import ModelPermEngine, PermCache
 from repro_torch.perm.engine import PruneReport
 
-__all__ = ["PruneReport", "prune_model", "apply_masks"]
+__all__ = ["PruneReport", "prune_model", "apply_masks", "mask_tree", "per_block",
+           "get_node"]
 
 
 def prune_model(
@@ -54,9 +57,14 @@ def prune_model(
     Fisher diagonal} dict per block.  `cache` (a PermCache) skips searches
     whose saliency matrices hash to a previously solved instance.
     `workers` caps the search thread pool (default REPRO_PERM_WORKERS or
-    cpu count; 1 = serial).  `permute_params=False` (mask-only pruning in
-    the original layout) serves gradual training and raises until the
-    training slice ports it.
+    cpu count; 1 = serial).
+
+    `permute_params=False` runs the same search but returns ``(model,
+    masks, None, report)``: the model untouched and masks in its ORIGINAL
+    layout (tiles become non-contiguous row sets — irrelevant for
+    masked-dense training, and it keeps optimizer moments aligned when the
+    masks are refreshed mid-training).  Packing for serving needs the
+    physical layout (`True`, the default).
     """
     engine = ModelPermEngine(
         cfg, method=method, rng=rng or np.random.default_rng(0),
@@ -65,7 +73,7 @@ def prune_model(
         cache=cache, workers=workers,
     )
     if not permute_params:
-        engine.run_virtual(model)
+        return model, engine.run_virtual(model), None, engine.report
 
     permuted = copy.deepcopy(model)
     stacked = {ci: (list(getattr(permuted, c.key)), fisher)
@@ -91,3 +99,31 @@ def apply_masks(model, masks):
             lin = nn.get_path(blk, path)
             lin.set_weight(lin.w * m.to(lin.w.dtype))
     return out
+
+
+def get_node(tree: dict, key: str, path: str) -> dict:
+    """The dict of a planned projection (``{"w": ..., "b": ...}``) in a
+    params-shaped tree: ``tree[key]`` then `path`'s parts."""
+    node = tree[key]
+    for part in path.split("/"):
+        node = node[part]
+    return node
+
+
+def mask_tree(params: dict, masks: list[dict]) -> dict:
+    """Per-block masks (``masks[i][path]``, as `prune_model` returns them)
+    as the training state's mask tree: each projection's masks stacked
+    over layers at its weight's place in `params`, ``None`` elsewhere."""
+    tree = T.map(lambda _: None, params)
+    for path in masks[0]:
+        get_node(tree, "blocks", path)["w"] = torch.stack([m[path] for m in masks])
+    return tree
+
+
+def per_block(tree: dict, paths) -> list[dict]:
+    """The inverse view: ``[{path: leaf[i]}]`` per block for the planned
+    `paths` of a params-shaped tree (a Fisher diagonal for `prune_model`,
+    a mask tree for `apply_masks`)."""
+    stacks = {p: get_node(tree, "blocks", p)["w"] for p in paths}
+    n = len(next(iter(stacks.values())))
+    return [{p: s[i] for p, s in stacks.items()} for i in range(n)]

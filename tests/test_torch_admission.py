@@ -25,6 +25,7 @@ from repro_torch import serve
 from repro_torch.configs.base import load_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import paging
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHED = dict(max_slots=2, max_seq=64, page=16, decode_chunk=4)
 STATE = ("_tok", "_active", "_rem", "_temp", "_topk", "_topp", "_eos", "_seeds", "_gens",

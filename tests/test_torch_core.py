@@ -18,6 +18,7 @@ from repro.core import sparsity as _jsparsity
 from repro.core.types import HiNMConfig as JHiNMConfig
 from repro_torch.core import packing, sparsity
 from repro_torch.core.types import HiNMConfig
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # the reference functions under jit: one compile per shape instead of one
 # per eager op keeps this file fast

@@ -35,6 +35,7 @@ from repro_torch.configs.base import load_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.serve.flightrec import (FlightEvent, as_events, load_jsonl, recorded_tokens,
                                          requests_from_record)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # event fields whose values differ between the packages by design: the
 # paged-attention backend the knob asked for, resolved to, or deferred

@@ -27,6 +27,7 @@ from repro_torch.core.types import HiNMConfig, PackedHiNM
 from repro_torch.kernels import hinm_spmm as hs
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attn as pa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -198,7 +199,8 @@ FORBIDDEN = re.compile(
 
 
 def test_port_sources_import_neither_jax_nor_repro():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("*_torch.py")))
     assert len(files) > 20
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -211,7 +213,9 @@ def test_port_import_leaves_jax_and_repro_unloaded():
     code = ("import sys, repro_torch.serve, repro_torch.convert, repro_torch.kernels.ops, "
             "repro_torch.kernels.nm_select, repro_torch.train.pruning, repro_torch.perm, "
             "repro_torch.core.api, repro_torch.core.baselines, repro_torch.core.gyro, "
-            "repro_torch.core.hungarian, repro_torch.core.saliency\n"
+            "repro_torch.core.hungarian, repro_torch.core.saliency, repro_torch.train.steps, "
+            "repro_torch.train.loop, repro_torch.train.gradual, repro_torch.data.pipeline, "
+            "repro_torch.checkpoint, repro_torch.optim.compression\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n")

@@ -19,6 +19,7 @@ from repro_torch.configs.base import load_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.types import PackedHiNM
 from repro_torch.models import paging, zoo
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 MAX_SEQ = 64
@@ -159,3 +160,31 @@ def test_paged_decode_matches(models, mode):
         if name == "kpos":
             got, want = got[:, paging.N_RESERVED:], want[:, paging.N_RESERVED:]
         np.testing.assert_array_equal(want, got)
+
+
+def test_serve_steps_match(models):
+    """`train.steps.make_serve_steps`: the prefill's last logits and cache,
+    then two decode steps on the stripe cache, against the reference's
+    (jitted, as its serving runs them)."""
+    from repro.launch.mesh import make_host_mesh
+    from repro.train import steps as jsteps
+    from repro_torch.train import steps
+
+    jcfg, cfg, out = models
+    jp, model = out["dense"]
+    jpre, jdec = (jax.jit(f) for f in jsteps.make_serve_steps(jcfg, make_host_mesh()))
+    pre, dec = steps.make_serve_steps(cfg)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab, (2, 10)).astype(np.int32)
+    jlog, jc = jpre(jp, jnp.asarray(toks), jzoo.make_cache(jcfg, 2, MAX_SEQ))
+    tc = zoo.make_cache(cfg, 2, MAX_SEQ, device="cpu")
+    tlog, tc2 = pre(model, torch.from_numpy(toks), tc)
+    assert tc2 is tc
+    _close(jlog, tlog)
+    for _ in range(2):
+        tok = rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32)
+        jlog, jc = jdec(jp, jnp.asarray(tok), jc)
+        tlog, tc = dec(model, torch.from_numpy(tok), tc)
+        _close(jlog, tlog)
+    for name in ("k", "v"):
+        _close(jc[name], tc[name])

@@ -19,6 +19,7 @@ from repro.kernels.nm_select import nm_select as jnm_select
 from repro_torch.convert import to_tensor
 from repro_torch.kernels import nm_select as nms
 from repro_torch.kernels import ops
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # the argsort oracle under jit: one compile per case instead of one per op
 j_oracle = jax.jit(jref.nm_select_ref, static_argnums=(1, 2))

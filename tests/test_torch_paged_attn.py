@@ -17,6 +17,7 @@ from repro_torch.convert import to_tensor
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attn as pa
 from test_torch_kernels import CASES, _paged_case
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NEG_INF = -1e30
 IDLE = 1  # the idle slot of _idle_case

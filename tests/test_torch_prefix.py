@@ -35,6 +35,7 @@ from repro_torch.configs.base import load_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import paged_attn as pa
 from repro_torch.models import paging, zoo
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 

@@ -51,6 +51,7 @@ from repro_torch.models import zoo
 from repro_torch.perm import PermCache, realize
 from repro_torch.perm.engine import ModelPermEngine, default_workers, validate_out_perm
 from repro_torch.train import pruning
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REL = 1e-6
 CFG, JCFG = HiNMConfig(v=32), JHiNMConfig(v=32)
@@ -60,16 +61,6 @@ PATHS = ("attn/wq", "attn/wk", "attn/wv", "attn/wo", "mlp/wg", "mlp/wu", "mlp/wd
 def _close(got, want, rel=REL):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     np.testing.assert_allclose(got, want, rtol=rel, atol=rel * np.abs(want).max())
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The search runs thousands of tiny CPU ops from several threads;
-    intra-op threads only oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -397,8 +388,26 @@ def test_engine_rules_cache_and_workers(pruned, monkeypatch):
     cfg, model = pruned.cfg, pruned.model
     with pytest.raises(ValueError, match="unknown method"):
         ModelPermEngine(cfg, method="magic")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pruning.prune_model(model, cfg, permute_params=False)
+    # mask-only pruning (`permute_params=False`, gradual training's
+    # refresh): the model comes back untouched with no packed copy, and
+    # the masks are the reference's, or part from them only at an ICP
+    # assignment whose optima tie under the two frameworks' f32 costs
+    # (ROADMAP Queue 3): the same retained saliency within 1e-4 relative,
+    # and the reference's masks bit for bit on its own ICP costs
+    kw = dict(method="icp_only", icp_iters=2, workers=1, permute_params=False)
+    out, vmasks, vpacked, vrep = pruning.prune_model(model, cfg, **kw)
+    _, jvmasks, jvpacked, jvrep = jpruning.prune_model(pruned.params, pruned.jcfg, **kw)
+    assert out is model and vpacked is None and jvpacked is None
+    assert [t for t, _ in vrep.per_layer] == [t for t, _ in jvrep.per_layer]
+    _close(vrep.mean_retained, jvrep.mean_retained, rel=1e-4)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gyro, "_icp_cost_matrix", _reference_icp_costs)
+        replay = pruning.prune_model(model, cfg, **kw)[1]
+    for i in range(cfg.n_layers):
+        for path in PATHS:
+            want = _ref_leaf(jax.tree.map(np.asarray, jvmasks), i, path)["w"][i]
+            np.testing.assert_array_equal(replay[i][path].numpy(), want)
+            assert vmasks[i][path].shape == want.shape
     monkeypatch.setenv("REPRO_PERM_WORKERS", "two")
     with pytest.raises(ValueError, match="REPRO_PERM_WORKERS"):
         default_workers()

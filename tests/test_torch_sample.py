@@ -25,6 +25,7 @@ from repro_torch import serve
 from repro_torch.configs.base import load_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.serve import prng, sampler
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SEEDS = (0, 7, 2**31 - 1, 2**31, 2**31 + 5, 2**32 - 1, 2**32 + 7)
 DATA = (0, 1, 12345, 2**31 - 1, 2**31, 2**32 - 1)

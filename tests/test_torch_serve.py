@@ -20,6 +20,7 @@ from repro.models import zoo as jzoo
 from repro_torch import serve
 from repro_torch.configs.base import load_arch
 from repro_torch.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHED = dict(max_slots=2, max_seq=64, page=16, decode_chunk=4)
 # staggered arrivals, prompts across the 8 and 16 length buckets, more

@@ -28,6 +28,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models import paging, zoo
 from repro_torch.serve import prng
 from repro_torch.serve import spec as pspec
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 MAX_SEQ = 64

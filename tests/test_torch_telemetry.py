@@ -35,6 +35,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.serve import telemetry
 from repro_torch.serve.telemetry import metrics as tm
 from test_telemetry import _validate_chrome_trace
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # ---------------------------------------------------------------------------
 # the registry on the same inputs
