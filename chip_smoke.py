@@ -60,8 +60,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                the main flow's mix and the share workload (sharing on,
                prefill_chunk=64) served with telemetry=True, flightrec=True
                on a fresh scheduler, first run recorded and dumped, then a
-               graphed run whose streams and launch counts (from 0; 168
-               hinm_spmm and 24 paged_decode_attn per decode step of each
+               graphed run whose streams and launch counts (from 0; 7L
+               hinm_spmm and L paged_decode_attn per decode step of each
                chunk graph) must equal the serve phase's observability-off
                graphed run; each record replayed on a fresh scheduler
                (event- and token-identical) and the mix's on decode_chunk 4
@@ -77,7 +77,28 @@ Phases (each prints its own lines; any failure exits non-zero):
   7. agree   — teacher-forced prefill + 4 paged decode steps with the
                kernels, with the plain versions and with the masked-dense
                twin (torch.matmul): logits must agree.
-  8. train   — training runs no kernel of the three (masked-dense, dense
+  8. dense   — RMSNorm and LayerNorm rows bitwise across calls of 1, 4,
+               16 and 64 rows at every ported d_model; qwen2.5-14b at its
+               published widths and 48 layers, inited
+               on the card (seeded) and packed with no permutation (peak
+               memory, packed and dense bytes); K1 on its projections at B
+               4, 16 ("rows", the verify's) and 512, per projection and
+               per layer, and K2 at KV 8, G 5, hd 128, s 1/4/64/256, held
+               and timed; a verify row bitwise its decode step; prefill +
+               4 decode steps against the plain versions and a float32
+               forward of the same masked weights, layer by layer; 8
+               greedy requests served plain and with SpecConfig(k=3) and
+               the gyro-pruned 0.5B as ModelDrafter, fused (and its eager
+               twin) and unfused, graphed: launches per cycle asserted,
+               pools drained, streams equal to plain or parted at a near
+               tie; the 0.5B drafting for itself (acceptance 1.0, or each
+               rejection at a position where its stripe path and the paged
+               one part, within their measured gap);
+               codeqwen1.5-7b and starcoder2-15b (full width, 2 layers)
+               and bert-base: packed, K1 at B 4, 16 ("rows") and 512 and
+               K2 at s 1/4/64/256 at their shapes, prefill + 4 decode
+               steps against the plain versions.
+  9. train   — training runs no kernel of the three (masked-dense, dense
                matmuls and PyTorch ops, as the reference's training): the
                full-width qwen2-0.5b train step (bf16, AdamW, remat; batch
                8 x 512 of SyntheticLMData, 30 steps; the loss must fall by
@@ -87,15 +108,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                against the CPU, and a TF32 control that each gate of that
                comparison must refuse; the loop's retry, restore-and-skip and
                resume against an uninterrupted run; gradual HiNM pruning at
-               full width cut to 2 layers, gyro (the virtual refresh) and
+               full width cut to 1 layer, gyro (the virtual refresh) and
                noperm: densities on schedule, the refresh's time, PermCache
                hits, the masks' HiNM structure, recovery gaps; and
                examples/train_hinm_lm_torch.py --steps 40 as a subprocess.
-The line before the last holds the per-kernel JSON; the last line is
-{"ok": true, "device": {...}}.
+Each phase prints its seconds.  The line before the last holds the
+per-kernel JSON; the last line is {"ok": true, "device": {...}}.
 """
 import contextlib
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -114,15 +136,29 @@ K1_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}     # relative to max|y|
 # absolute; outputs are O(1) (a softmax-weighted mean of N(0, 1) values),
 # so 1e-2 is a few bf16 ulps
 K2_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-# kernels vs plain versions through 24 bf16 layers: both round every
+# kernels vs plain versions through the bf16 layers: both round every
 # projection output to bf16 but sum in different orders, so logits drift
 # by bf16 rounding compounded over depth (relative to max|logit|)
 AGREE_TOL = 5e-2
 EOS = 151643
 
 
-def phase(name):
-    print(f"\n=== {name} ===", flush=True)
+_PHASE = {}
+
+
+def phase(name=None):
+    """Open phase `name` (None: close the last), printing the seconds the
+    phase before it took."""
+    now = time.perf_counter()
+    if _PHASE:
+        print(f"--- phase {_PHASE['name']} took {now - _PHASE['t0']:.1f} s", flush=True)
+        SECONDS[_PHASE["name"]] = now - _PHASE["t0"]
+    _PHASE.update(name=name, t0=now)
+    if name is not None:
+        print(f"\n=== {name} ===", flush=True)
+
+
+SECONDS = {}
 
 
 def smi_line() -> str:
@@ -175,17 +211,17 @@ PROJ = {"q/o": (896, 896, 2), "k/v": (128, 896, 2), "gate/up": (4864, 896, 2),
         "down": (896, 4864, 1)}
 
 
-def k1_case(label, p, b, gen):
+def k1_case(label, p, b, gen, variant=None):
     """Hold K1 against its plain version on packed weight `p` at batch `b`
-    (x random, in p's dtype) and time kernel (the variant its dispatch
-    picks), plain version, `torch.matmul` on the masked-dense weight and
-    the bound."""
+    (x random, in p's dtype) and time kernel (`variant`, or the one its
+    dispatch picks), plain version, `torch.matmul` on the masked-dense
+    weight and the bound."""
     from repro_torch.core import packing
     from repro_torch.kernels import hinm_spmm as hs
 
     dtype, n_out, n_in, v = p.vals.dtype, p.n_out, p.n_in, p.config.v
     x = torch.randn((b, n_in), generator=gen, device="cuda").to(dtype)
-    y = hs.hinm_spmm(x, p)
+    y = hs.hinm_spmm(x, p, variant=variant)
     torch.cuda.synchronize()
     y_ref = hs.hinm_spmm_ref(x, p)
     torch.cuda.synchronize()
@@ -193,7 +229,7 @@ def k1_case(label, p, b, gen):
     err = float((y.float() - y_ref.float()).abs().max())
     rel = err / max(scale, 1e-30)
     w_dense = packing.unpack(p)                       # masked-dense (n_out, n_in)
-    ms = time_ms(lambda: hs.hinm_spmm(x, p))
+    ms = time_ms(lambda: hs.hinm_spmm(x, p, variant=variant))
     plain_ms = time_ms(lambda: hs.hinm_spmm_ref(x, p))
     lib_ms = time_ms(lambda: torch.matmul(x, w_dense.T))
     isz = x.element_size()
@@ -201,7 +237,7 @@ def k1_case(label, p, b, gen):
     ops = 2.0 * p.vals.numel() * b
     b_ms, b_by = bound(nbytes, ops, dtype)
     tol = K1_TOL[dtype]
-    variant = hs.variant(b, p, dtype)
+    variant = variant or hs.variant(b, p, dtype)
     line = dict(case=label, shape=[n_out, n_in], B=b, dtype=str(dtype).split(".")[-1],
                 V=v, variant=variant, max_abs_err=err, max_rel_err=rel, tol=tol, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
@@ -304,17 +340,18 @@ def sdpa_view(q, kp, vp, kpos, bt, q_pos, window):
 
 
 def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=None,
-            extend=False):
+            extend=False, kvh=2, g=7):
     """Hold K2 against its plain version on a random paged pool (B slots,
-    KV 2, G 7, page 16) and time kernel, plain version, SDPA over the
-    gathered view, SDPA alone (its inputs gathered and GQA-expanded before
-    the timed window) and the bound."""
+    KV `kvh`, G `g`, page 16; qwen2-0.5b's 2 and 7 unless given) and time
+    kernel, plain version, SDPA over the gathered view, SDPA alone (its
+    inputs gathered and GQA-expanded before the timed window) and the
+    bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import paged_attn as pa
     from repro_torch.models import paging
 
-    kvh, g, page = 2, 7, 16
+    page = 16
     n_pages = b * n_bt + 2
     q, kp, vp, kpos, bt, q_pos = paged_case(b, s, kvh, g, hd, page, n_bt, n_pages, dtype,
                                             seed, full=full, idle=idle, extend=extend)
@@ -360,7 +397,7 @@ def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=N
             raise AssertionError(f"K2 {label} {dtype}: s={s} rows are not bitwise the s=1 "
                                  "calls' (a verify would not be decode)")
     print(f"K2 {label:18s} B={b:<3d} s={s} window={window:<3d} n_bt={n_bt:<4d} hd={hd:<3d} "
-          f"{line['dtype']:8s} splits {n_splits:<3d} tiles {n_tiles} err={err:.2e} (tol {tol:.0e}) "
+          f"KV={kvh} G={g} {line['dtype']:8s} splits {n_splits:<3d} tiles {n_tiles} err={err:.2e} (tol {tol:.0e}) "
           f"kernel "
           f"{ms*1e3:7.1f} us  plain {plain_ms*1e3:8.1f} us  sdpa(view) {lib_ms*1e3:7.1f} us  "
           f"sdpa alone {only_ms*1e3:7.1f} us  bound {b_ms*1e3:6.2f} us ({b_by})"
@@ -557,7 +594,7 @@ def kernels_phase():
         raise AssertionError(f"K1 dispatch crossover is not K1_CROSSOVER = {K1_CROSSOVER}: {at}")
     layer, crossover, ps, dense = k1_layer(gen)
     layer["verify"] = k1_verify_layer(gen, ps, dense)
-    layer["extension"] = {b: k1_extension_layer(gen, ps, dense, b) for b in (256, 1024)}
+    layer["extension"] = {b: k1_layer_at("extension", gen, ps, dense, b) for b in (256, 1024)}
     k2 = k2_cases() + k2_extension_cases()
     k2_sweep = k2_split_sweep() | k2_tile_sweep()
     k3 = [k3_case("random", k3_input(shape, dtype, gen), nn, mm)
@@ -627,9 +664,10 @@ def k1_layer(gen):
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by), crossover, ps, dense
 
 
-def k1_verify_layer(gen, ps, dense, b=16):
-    """The speculative verify's decode layer: the same seven projections at
-    B = slots x (k+1) = 16 rows, bf16, V 32.  The verify runs them on the
+def k1_verify_layer(gen, ps, dense, b=16, label="verify"):
+    """The speculative verify's decode layer: a layer's projections `ps`
+    (the kernels phase's seven at 0.5B widths) at B = slots x (k+1) = 16
+    rows, bf16, V 32.  The verify runs them on the
     variant decode runs for 4 slots ("rows": its sums do not depend on the
     batch, so row i is bitwise what decode computes; asserted here against
     four B = 4 calls); the dispatch's own choice at B 16 ("mma") is held and
@@ -639,7 +677,7 @@ def k1_verify_layer(gen, ps, dense, b=16):
 
     dt = torch.bfloat16
     xs_by_n = {n: torch.randn((b, n), generator=gen, device="cuda").to(dt)
-               for n in (896, 4864)}
+               for n in sorted({p.n_in for p in ps})}
     xs = [xs_by_n[p.n_in] for p in ps]
     refs = [hs.hinm_spmm_ref(x, p) for x, p in zip(xs, ps)]
     lib_ms = time_ms(lambda: [torch.matmul(x, w.T) for x, w in zip(xs, dense)])
@@ -664,29 +702,31 @@ def k1_verify_layer(gen, ps, dense, b=16):
                                    for i in range(0, b, 4)]) for x, p in zip(xs, ps)]
             line["rows_bit_equal_b4"] = all(torch.equal(y, q) for y, q in zip(ys, quarters))
             if not line["rows_bit_equal_b4"]:
-                raise AssertionError("K1 rows at B 16 is not bitwise four B 4 calls")
-        print(f"K1 verify layer (7 projections, B={b}, bf16, V=32, {var}): rel_err={rel:.2e} "
+                raise AssertionError(f"K1 {label} rows at B 16 is not bitwise four B 4 calls")
+        print(f"K1 {label} layer ({len(ps)} projections, B={b}, bf16, V=32, {var}): "
+              f"rel_err={rel:.2e} "
               f"(tol {K1_TOL[dt]:.0e}) kernel {ms*1e3:7.1f} us  matmul {lib_ms*1e3:7.1f} us  "
               f"bound {b_ms*1e3:6.2f} us ({b_by})"
               + (f"  plain {line['plain_ms']*1e3:7.1f} us  rows bitwise B4 "
                  f"{line['rows_bit_equal_b4']}" if var == "rows" else ""), flush=True)
         if not rel <= K1_TOL[dt]:
-            raise AssertionError(f"K1 verify layer {var}: relative error {rel}")
+            raise AssertionError(f"K1 {label} layer {var}: relative error {rel}")
         out[var] = line
     return out
 
 
-def k1_extension_layer(gen, ps, dense, b):
-    """An extension prefill's layer: the seven projections at B = 4 slots x
-    the width bucket (256 = 4 x 64, a chunk; 1,024 = 4 x 256, a long
-    suffix), bf16, V 32, the variant the dispatch picks ("mma"): checked
-    against the plain version, timed as one call of seven launches, with
-    `torch.matmul` and the bound."""
+def k1_layer_at(label, gen, ps, dense, b):
+    """A layer's projections `ps` at batch `b`, bf16, V 32, the variant the
+    dispatch picks: checked against the plain version, timed as one call
+    (kernel, plain version, `torch.matmul` on the masked-dense weights
+    `dense`, the bound; each distinct input counted once).  The kernels
+    phase runs the 0.5B's seven at an extension's B = 4 slots x the width
+    bucket (256 = 4 x 64, a chunk; 1,024 = 4 x 256, a long suffix, "mma")."""
     from repro_torch.kernels import hinm_spmm as hs
 
     dt = torch.bfloat16
     xs_by_n = {n: torch.randn((b, n), generator=gen, device="cuda").to(dt)
-               for n in (896, 4864)}
+               for n in sorted({p.n_in for p in ps})}
     xs = [xs_by_n[p.n_in] for p in ps]
     ys = [hs.hinm_spmm(x, p) for x, p in zip(xs, ps)]
     torch.cuda.synchronize()
@@ -701,11 +741,12 @@ def k1_extension_layer(gen, ps, dense, b):
               + sum(p.packed_bytes() + b * p.n_out * 2 for p in ps))
     b_ms, b_by = bound(nbytes, sum(2.0 * p.vals.numel() * b for p in ps), dt)
     var = hs.variant(b, ps[0], dt)
-    print(f"K1 extension layer (7 projections, B={b}, bf16, V=32, {var}): rel_err={rel:.2e} "
-          f"(tol {K1_TOL[dt]:.0e}) kernel {ms*1e3:8.1f} us  plain {plain_ms*1e3:8.1f} us  "
-          f"matmul {lib_ms*1e3:8.1f} us  bound {b_ms*1e3:7.2f} us ({b_by})", flush=True)
+    print(f"K1 {label} layer ({len(ps)} projections, B={b}, bf16, V=32, {var}): "
+          f"rel_err={rel:.2e} (tol {K1_TOL[dt]:.0e}) kernel {ms*1e3:8.1f} us  plain "
+          f"{plain_ms*1e3:8.1f} us  matmul {lib_ms*1e3:8.1f} us  bound {b_ms*1e3:7.2f} us "
+          f"({b_by}; {b_ms / ms:.1%} of the kernel's time)", flush=True)
     if not rel <= K1_TOL[dt]:
-        raise AssertionError(f"K1 extension layer B {b}: relative error {rel}")
+        raise AssertionError(f"K1 {label} layer B {b}: relative error {rel}")
     return dict(B=b, variant=var, max_rel_err=rel, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
@@ -1240,7 +1281,7 @@ def serve_phase(cfg, model):
     mixed = mixed_phase(cfg, model, sched, prof)
     shared = share_phase(cfg, model, sched, prof["spec_bits"], mixed["prefill_width_noise"])
     return {"hinm_spmm": k1_n, "paged_decode_attn": k2_n, "sched": sched,
-            "greedy_requests": requests,
+            "greedy_requests": requests, "greedy_prompts": prompts, "greedy_reqs": reqs,
             "decode_tok_s": line["decode_tok_s"], "served_p50_step_ms": line["p50_step_ms"],
             "profile": prof, "wall_s": line["wall_s"], "prefill_k1_per_admission": prefill_k1,
             "runs": {mode: ln for mode, (_, ln) in runs.items()}, "twins": twins,
@@ -1340,18 +1381,18 @@ def drive(sched, reqs):
                 steps=t)
 
 
-def serve_run(label, sched, make_requests):
+def serve_run(label, sched, make_requests, eager=True):
     """Serve `make_requests()` on `sched` three times, reset before each: a
     warm-up run, whose first use of each program runs it eagerly and
-    captures it; the graphed run, which replays them; and its eager twin
-    under `graphs._eager()`.  Launch counts are set to 0 just before each
+    captures it; the graphed run, which replays them; and, with `eager`,
+    its eager twin under `graphs._eager()`.  Launch counts are set to 0 just before each
     measured run and read just after.  Each run goes through `drive`
     (page-steps, the busiest step's prefill rows, refcount conservation).
     Checks every request ran to its budget.  The graphed run's decode and
     extension programs are timed on the device (`DeviceClock`); the eager
     twin runs the same device work, so both runs' idle share is 1 - that
     decode device time per decode step / the run's wall time per decode
-    step.  Returns {"graphed" | "eager": (requests, line)}."""
+    step.  Returns {"graphed" [| "eager"]: (requests, line)}."""
     from repro_torch.kernels import hinm_spmm as hs
     from repro_torch.kernels import paged_attn as pa
     from repro_torch.serve import graphs
@@ -1363,7 +1404,7 @@ def serve_run(label, sched, make_requests):
     runs = {}
     # the graphed run's; its eager twin does the same device work
     device_ms = extend_ms = extend_n = None
-    for mode in ("graphed", "eager"):
+    for mode in ("graphed", "eager") if eager else ("graphed",):
         sched.reset()
         reqs = make_requests()
         c0, r0 = g.captures, g.replays
@@ -1518,6 +1559,29 @@ def prefill_width_noise(cfg, model, sched, prompts, steps=24):
     return max(float((r - runs[0]).abs().max()) for r in runs[1:])
 
 
+def regroup(cfg, model, sched, prompts, group):
+    """Prefill admission group `group` (rids, indexes into `prompts`)
+    exactly as `Scheduler` did: same members, bucket and padded width, so
+    bitwise the same rows.  Returns the stripe and the last-token pre-logits."""
+    from repro_torch.models import zoo
+
+    rows = [prompts[r] for r in group]
+    k_b = 1
+    while k_b < len(rows):
+        k_b *= 2
+    s_b = sched._bucket_len(len(rows[0]))
+    toks = np.zeros((k_b, s_b), np.int32)
+    n_rows = np.zeros((k_b,), np.int32)
+    for i in range(k_b):
+        p = rows[min(i, len(rows) - 1)]
+        toks[i, : len(p)] = p
+        n_rows[i] = len(p)
+    st = zoo.make_cache(cfg, k_b, sched.max_seq, device="cuda")
+    last = zoo.prefill(model, cfg, torch.from_numpy(toks).cuda(), st,
+                       n_rows=torch.from_numpy(n_rows).cuda())
+    return st, last
+
+
 @torch.no_grad()
 def parting_margin(cfg, model, sched, prompts, req, group, j, other=None):
     """The top-2 margin, in logits, of the plain run's draw of token j of
@@ -1539,21 +1603,8 @@ def parting_margin(cfg, model, sched, prompts, req, group, j, other=None):
     from repro_torch.serve import prng, sampler
     from repro_torch.serve.kv import SlotKVCache
 
-    rows = [prompts[r] for r in group]
-    k_b = 1
-    while k_b < len(rows):
-        k_b *= 2
-    s_b = sched._bucket_len(len(rows[0]))
-    toks = np.zeros((k_b, s_b), np.int32)
-    n_rows = np.zeros((k_b,), np.int32)
-    for i in range(k_b):
-        p = rows[min(i, len(rows) - 1)]
-        toks[i, : len(p)] = p
-        n_rows[i] = len(p)
+    st, last = regroup(cfg, model, sched, prompts, group)
     kv = SlotKVCache(cfg, 4, sched.max_seq, page=16, n_pages=None, device="cuda")
-    st = kv.template(k_b)
-    last = zoo.prefill(model, cfg, torch.from_numpy(toks).cuda(), st,
-                       n_rows=torch.from_numpy(n_rows).cuda())
     row = group.index(req.rid)
     logits = zoo.logits_fn(model, cfg, last)[row: row + 1, : cfg.vocab].float()
     kv.insert(kv.acquire(), st, len(req.prompt), row=row, reserve=len(req.prompt) + j + 1)
@@ -1572,7 +1623,9 @@ def parting_margin(cfg, model, sched, prompts, req, group, j, other=None):
                                      torch.tensor([p.top_p], device="cuda"))
         scores = (masked + prng.gumbel(key, cfg.vocab)) * p.temperature
     top2 = torch.topk(scores[0], 2)
-    margin, drawn = float(top2.values[0] - top2.values[1]), int(top2.indices[0])
+    # the draw as the sampler makes it: argmax takes the first of tied
+    # maxima, where topk's order among ties is unspecified
+    margin, drawn = float(top2.values[0] - top2.values[1]), int(scores[0].argmax())
     rank = None
     if other is not None:
         lg = logits[0]
@@ -1586,6 +1639,47 @@ def parting_margin(cfg, model, sched, prompts, req, group, j, other=None):
             elif other == int(top2.indices[1]):
                 margin = min(margin, float(lg[drawn] - edge[-1]))
     return margin, drawn, rank
+
+
+def spec_vs_plain(label, cfg, model, plain_sched, prompts, plain, spec, delta_fn,
+                  prefix=False):
+    """Spec streams against the plain run's, request by request: equal, or
+    parted only where the admission group differed (the one source of
+    other bits) at a near tie (`parting_margin`).  Both runs have the same
+    budgets, so streams of other lengths that agree as far as the shorter
+    goes are a fault (one run missed a stop), unless `prefix`: the spec run
+    was asked for more tokens, and its stream's first len(plain) tokens are
+    what is compared."""
+    groups0 = admission_groups(plain)
+    groups = admission_groups(spec)
+    partings = []
+    for a, b in zip(plain, spec):
+        toks = b.tokens[: len(a.tokens)] if prefix else b.tokens
+        if a.tokens == toks:
+            continue
+        j = next((i for i, (x, y) in enumerate(zip(a.tokens, toks)) if x != y), None)
+        if j is None:
+            raise AssertionError(f"{label}: request {a.rid} emitted {len(toks)} tokens "
+                                 f"against the plain run's {len(a.tokens)}, equal as far as "
+                                 "the shorter goes: one run missed a stop")
+        margin, drawn, _ = parting_margin(cfg, model, plain_sched, prompts, a, groups0[a.rid], j)
+        delta = delta_fn()
+        partings.append(dict(rid=a.rid, index=j, margin=margin, threshold=delta,
+                             group_plain=groups0[a.rid], group_spec=groups[a.rid],
+                             replay_matches=drawn == a.tokens[j],
+                             near_tie=(groups[a.rid] != groups0[a.rid] and drawn == a.tokens[j]
+                                       and margin <= delta)))
+    same = sum(a.tokens == (b.tokens[: len(a.tokens)] if prefix else b.tokens)
+               for a, b in zip(plain, spec))
+    print(f"{label}: streams equal to the plain run's {same}/{len(plain)}; {len(partings)} "
+          f"parting(s)" + "".join(
+              f"\n  request {p['rid']} at token {p['index']}: plain-run top-2 margin "
+              f"{p['margin']:.3e} (threshold {p['threshold']:.3e}), group {p['group_plain']} -> "
+              f"{p['group_spec']}, replay draws the plain token {p['replay_matches']}, near tie "
+              f"{p['near_tie']}" for p in partings), flush=True)
+    if any(not p["near_tie"] for p in partings):
+        raise AssertionError(f"{label}: streams part from plain beyond the near-tie rule")
+    return dict(identical=same, requests=len(plain), partings=partings)
 
 
 def mixed_phase(cfg, model, sched, prof):
@@ -1621,38 +1715,15 @@ def mixed_phase(cfg, model, sched, prof):
     for label, r in runs.items():
         before_after(f"mixed {label}", r)
     plain = runs["plain"]["graphed"][0]
-    groups0 = admission_groups(plain)
     noise = prefill_width_noise(cfg, model, sched, prompts)
     delta = max(bits["max_abs_dlogit"], noise)
-    partings = []
-    for label in ("spec fused", "spec unfused"):
-        reqs = runs[label]["graphed"][0]
-        groups = admission_groups(reqs)
-        for a, b in zip(plain, reqs):
-            if a.tokens == b.tokens:
-                continue
-            j = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y)
-            margin, drawn, _ = parting_margin(cfg, model, sched, prompts, a, groups0[a.rid], j)
-            ok = (groups[a.rid] != groups0[a.rid] and drawn == a.tokens[j]
-                  and margin <= delta)
-            partings.append(dict(run=label, rid=a.rid, index=j, margin=margin,
-                                 group_plain=groups0[a.rid], group_spec=groups[a.rid],
-                                 replay_matches=drawn == a.tokens[j], near_tie=ok))
-    same = {label: sum(a.tokens == b.tokens
-                       for a, b in zip(plain, runs[label]["graphed"][0]))
-            for label in ("spec fused", "spec unfused")}
-    print(f"graphed streams equal to the plain run's: fused {same['spec fused']}/{len(plain)}, "
-          f"unfused {same['spec unfused']}/{len(plain)} requests; near-tie threshold "
-          f"{delta:.3e} (verify vs decode {bits['max_abs_dlogit']:.3e}, prefill width "
-          f"{noise:.3e}); {len(partings)} parting point(s)" + "".join(
-              f"\n  {p['run']} request {p['rid']} at token {p['index']}: plain-run top-2 "
-              f"margin {p['margin']:.3e}, group {p['group_plain']} -> {p['group_spec']}, "
-              f"replay draws the plain token {p['replay_matches']}, near tie {p['near_tie']}"
-              for p in partings), flush=True)
-    bad = [p for p in partings if not p["near_tie"]]
-    if bad:
-        raise AssertionError(f"speculative streams part from the plain ones beyond the "
-                             f"near-tie rule: {bad}")
+    print(f"near-tie threshold {delta:.3e} (verify vs decode {bits['max_abs_dlogit']:.3e}, "
+          f"prefill width {noise:.3e})", flush=True)
+    streams = {label: spec_vs_plain(f"mixed {label}", cfg, model, sched, prompts, plain,
+                                    runs[label]["graphed"][0], lambda: delta)
+               for label in ("spec fused", "spec unfused")}
+    same = {label: v["identical"] for label, v in streams.items()}
+    partings = [dict(p, run=label) for label, v in streams.items() for p in v["partings"]]
     return {"runs": {k: {mode: ln for mode, (_, ln) in v.items()} for k, v in runs.items()},
             "tokens": {k: [r.tokens for r in v["graphed"][0]] for k, v in runs.items()},
             "identical": same, "near_tie_threshold": delta, "prefill_width_noise": noise,
@@ -2254,14 +2325,16 @@ def teacher_forced_logits(cfg, model, prompt, forced, backend):
     return torch.stack(logits)[..., : cfg.vocab].float()
 
 
-def compare_logits(what, a, r):
+def compare_logits(what, a, r, tol=AGREE_TOL):
+    """max |a - r| relative to max |r| within `tol`: (that ratio, the
+    greedy-token match, max |a - r|)."""
     rel = float((a - r).abs().max()) / float(r.abs().max())
     match = float((a.argmax(-1) == r.argmax(-1)).float().mean())
-    print(f"{what}: max |dlogit| / max|logit| = {rel:.2e} (tol {AGREE_TOL:.0e}); "
+    print(f"{what}: max |dlogit| / max|logit| = {rel:.2e} (tol {tol:.0e}); "
           f"greedy-token match {match:.3f} over {a.shape[0] * a.shape[1]} positions")
-    if not rel <= AGREE_TOL:
-        raise AssertionError(f"{what}: logits disagree: {rel} > {AGREE_TOL}")
-    return rel, match
+    if not rel <= tol:
+        raise AssertionError(f"{what}: logits disagree: {rel} > {tol}")
+    return rel, match, float((a - r).abs().max())
 
 
 @torch.no_grad()
@@ -2288,7 +2361,489 @@ def agree_phase(cfg, model):
 
 
 # --------------------------------------------------------------------------
-# phase 8: training (masked-dense train step, loop, gradual pruning)
+# phase 8: the rest of the dense family, and the model drafter
+# --------------------------------------------------------------------------
+
+# the served target: qwen2.5-14b at its published widths and depth
+BIG = "qwen2_5_14b"
+# the other dense configs at full width: codeqwen1.5-7b and starcoder2-15b
+# cut to 2 layers (depth only: their weights would not fit beside the
+# rest), bert-base whole
+OTHER_DENSE = (("codeqwen1_5_7b", 2), ("starcoder2_15b", 2), ("bert_base", None))
+# the float32 forward of the same masked weights against the kernels: the
+# kernel path rounds every projection output to bf16 over 48 layers, the
+# f32 one nothing, so the gap is one side's bf16 rounding compounded over
+# depth, relative to max|logit| (a CPU estimate at 48 layers and narrow
+# widths: 1.4e-2); the same limit as the kernels against the plain versions
+F32_TOL = AGREE_TOL
+
+
+def gb(nbytes) -> str:
+    return f"{nbytes / 1e9:.2f} GB"
+
+
+def free_card() -> None:
+    """Return a dropped model's memory to the card: a scheduler and its
+    graph cache reference each other (`on_build`), so only the cyclic
+    collector frees them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def build_packed(name, n_layers=None, seed=3):
+    """`load_arch(name)` (its depth cut to `n_layers` if given), inited
+    from a seeded generator on the card, then packed by `zoo.pack_params`:
+    the reference's serve-time packing with no permutation (noperm).  The
+    peak memory of init and pack, beside the model's packed and dense
+    bytes."""
+    import dataclasses
+
+    from repro_torch.configs.base import load_arch
+    from repro_torch.models import zoo
+    from repro_torch.serve import param_bytes
+
+    cfg = load_arch(name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    init_peak = torch.cuda.max_memory_allocated()
+    zoo.pack_params(cfg, model)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    packed, dense = param_bytes(model)
+    info = dict(layers=cfg.n_layers, init_s=t1 - t0, pack_s=t2 - t1, held_before=held,
+                init_peak=init_peak, peak=torch.cuda.max_memory_allocated(),
+                after=torch.cuda.memory_allocated(), packed_bytes=packed, dense_bytes=dense)
+    print(f"{name}: {cfg.n_layers} layers d_model {cfg.d_model} heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} hd {cfg.head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab} -> "
+          f"{cfg.vocab_padded}, {cfg.norm}/{cfg.act}; init {info['init_s']:.1f} s, pack "
+          f"{info['pack_s']:.1f} s; weights {gb(packed)} packed vs {gb(dense)} dense; card "
+          f"memory {gb(held)} held before, peak {gb(info['init_peak'])} after init and "
+          f"{gb(info['peak'])} through pack, {gb(info['after'])} after", flush=True)
+    return cfg, model, info
+
+
+def layer_projections(cfg, model):
+    """Layer 0's packed projections, (path, PackedHiNM) in a layer's order."""
+    from repro_torch.models import module as M
+
+    mlp = ("mlp/wg", "mlp/wu", "mlp/wd") if cfg.act == "swiglu" else ("mlp/wu", "mlp/wd")
+    return [(path, M.get_path(model.blocks[0], path).w)
+            for path in ("attn/wq", "attn/wk", "attn/wv", "attn/wo") + mlp]
+
+
+def k1_shapes(label, cfg, model, gen, bs):
+    """K1 on each distinct projection shape of the model's layer 0 (its own
+    packed weights) at each (B, variant) of `bs`, held and timed
+    (`k1_case`)."""
+    seen, out = set(), []
+    for path, p in layer_projections(cfg, model):
+        if (p.n_out, p.n_in) in seen:
+            continue
+        seen.add((p.n_out, p.n_in))
+        for b, var in bs:
+            out.append(k1_case(f"{label} {path.split('/')[1]}", p, b, gen, variant=var))
+    return out
+
+
+def k2_shapes(label, cfg, ss, seed):
+    """K2 at the model's head layout (KV, G, hd), B 4, page 16, n_bt 16,
+    bf16: s 1 and 4 in the decode layout, wider s in the extension's."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    return [k2_case(f"{label} s={s}", 4, s, 0, cfg.dtype, seed + i, hd=cfg.head_dim,
+                    kvh=cfg.n_kv_heads, g=g, extend=s > SPEC_K + 1)
+            for i, s in enumerate(ss)]
+
+
+def f32_block(blk):
+    """A float32 twin of one block: every projection's masked weights
+    unpacked to dense f32, biases and norms in f32."""
+    from repro_torch.core import packing
+    from repro_torch.core.types import PackedHiNM
+    from repro_torch.models import layers as L
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer
+
+    def lin(m):
+        w = packing.unpack(m.w).T if isinstance(m.w, PackedHiNM) else m.w
+        return M.Linear(w.float().contiguous(), None if m.b is None else m.b.float())
+
+    def norm(n):
+        return M.Norm(n.scale.float(), None if n.bias is None else n.bias.float())
+
+    return transformer.Block(
+        norm(blk.ln1), L.Attention(*(lin(getattr(blk.attn, n)) for n in ("wq", "wk", "wv", "wo"))),
+        norm(blk.ln2), L.MLP(**{n: lin(m) for n, m in blk.mlp.named_children()}))
+
+
+@torch.no_grad()
+def f32_logits(cfg, model, prompt, forced):
+    """`teacher_forced_logits`' positions from a float32 forward of the same
+    masked weights over prompt + forced tokens, one layer at a time (each
+    layer's f32 twin built, run and dropped: no dense copy of the whole
+    model exists), TF32 off: (1 + steps, B, vocab)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import module as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    toks = torch.cat([prompt, forced[:, :, 0].T], dim=1)
+    b, s = toks.shape
+    x = model.embed.table[toks.long()].float()
+    positions = torch.arange(s, dtype=torch.int32, device="cuda").expand(b, s)
+    for blk in model.blocks:
+        x = f32_block(blk)(x, positions, cfg, None, "torch")
+    x = L.norm(M.Norm(model.ln_f.scale.float(), None if model.ln_f.bias is None
+                      else model.ln_f.bias.float()), x, cfg)
+    head = model.lm_head
+    rows = x[:, prompt.shape[1] - 1:]
+    logits = rows @ head.w.float() + (0 if head.b is None else head.b.float())
+    return logits.transpose(0, 1)[..., : cfg.vocab]
+
+
+@torch.no_grad()
+def norm_rows() -> dict:
+    """A norm's row bitwise whatever call holds it (what keeps a verify row
+    its decode step): RMSNorm and LayerNorm at every ported d_model, bf16,
+    over 64 random rows, against the same rows in calls of 1, 4 and 16 rows
+    (from row 0 and from row n) and of 16 rows as (4, 4, d)."""
+    from repro_torch.configs.base import PORTED_IDS, load_arch
+    from repro_torch.models import module as M
+
+    out = {}
+    for d in sorted({load_arch(name).d_model for name in PORTED_IDS}):
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        x = torch.randn((64, d), generator=gen, device="cuda").to(torch.bfloat16)
+        p = M.Norm((torch.rand(d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16),
+                   (torch.randn(d, generator=gen, device="cuda") * 0.1).to(torch.bfloat16))
+        for fn in (M.rmsnorm, M.layernorm):
+            full = fn(p, x)
+            ok = torch.equal(fn(p, x[:16].reshape(4, 4, d)).reshape(16, d), full[:16])
+            for n in (1, 4, 16):
+                for at in (0, n):
+                    ok = ok and torch.equal(fn(p, x[at: at + n]), full[at: at + n])
+            out[f"{fn.__name__} d={d}"] = ok
+    print("norm rows bitwise across calls of 1, 4, 16 and 64 rows: " + ", ".join(
+        f"{k} {v}" for k, v in out.items()), flush=True)
+    if not all(out.values()):
+        raise AssertionError("a norm's row depends on the call that holds it")
+    return out
+
+
+def dense_agree(label, cfg, model, f32=False, n_prompt=40, n_dec=4):
+    """Teacher-forced prefill + `n_dec` paged decode steps through the
+    kernels against the plain versions (and with `f32`, against the float32
+    forward of the same masked weights)."""
+    rng = np.random.default_rng(11)
+    b = 2
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, n_prompt)).astype(np.int32)).cuda()
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab, (n_dec, b, 1)).astype(np.int32)).cuda()
+    a = teacher_forced_logits(cfg, model, prompt, forced, "auto")
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"{label}: non-finite logits on the kernel path")
+    out = {"plain": compare_logits(f"{label}: kernels vs plain versions, prefill + {n_dec} "
+                                   "paged decode steps", a,
+                                   teacher_forced_logits(cfg, model, prompt, forced, "torch"))}
+    if f32:
+        out["f32"] = compare_logits(f"{label}: kernels vs a float32 forward of the masked "
+                                    "weights (layer by layer, TF32 off)", a,
+                                    f32_logits(cfg, model, prompt, forced), tol=F32_TOL)
+    return out
+
+
+def drained(label, sched):
+    """Both pools hold no slot after a run."""
+    kv, d = sched.kv, sched.draft_kv
+    ok = (kv.n_free == kv.n_slots and not kv.slot_len.any() and d.n_free == d.n_slots
+          and not d.slot_len.any())
+    print(f"{label}: pools drained {ok} (draft pool {d.n_free}/{d.n_slots} slots free)")
+    if not ok:
+        raise AssertionError(f"{label}: a pool did not drain")
+
+
+def spec_launches(label, cfg, dcfg, line, reqs):
+    """The launches of a graphed spec run, counted through replays, against
+    what its programs make: per verify cycle k+1 draft steps (the draft's
+    projections) and one verify (the target's), per admission group the
+    target's and the draft's prefill; K2 only in the verify."""
+    per_cycle = (SPEC_K + 1) * 7 * dcfg.n_layers + 7 * cfg.n_layers
+    groups = len(set(admission_groups(reqs).values()))
+    v = line["verify_steps"]
+    want_k1 = v * per_cycle + groups * 7 * (cfg.n_layers + dcfg.n_layers)
+    want_k2 = v * cfg.n_layers
+    print(f"{label}: launches hinm_spmm {line['hinm_spmm']} (want {v} cycles x {per_cycle} + "
+          f"{groups} groups x {7 * (cfg.n_layers + dcfg.n_layers)} = {want_k1}), "
+          f"paged_decode_attn {line['paged_decode_attn']} (want {want_k2})")
+    if (line["hinm_spmm"], line["paged_decode_attn"]) != (want_k1, want_k2):
+        raise AssertionError(f"{label}: launches differ from the programs' count")
+    return per_cycle
+
+
+def big_serve(cfg, model, dcfg, draft, prompts, bits):
+    """The 14B served by `Scheduler(max_slots=4, max_seq=256, page=16,
+    decode_chunk=8)`: 8 greedy requests plain, then with SpecConfig(k=3)
+    and the 0.5B `ModelDrafter`, fused and unfused; each graphed, the
+    fused one also as its eager twin."""
+    from repro_torch.serve import (ModelDrafter, Request, SamplingParams, Scheduler,
+                                   SpecConfig)
+
+    def requests():
+        return [Request(rid=i, prompt=p, params=SamplingParams(max_new_tokens=32), arrival=i)
+                for i, p in enumerate(prompts)]
+
+    geom = dict(max_slots=4, max_seq=256, page=16, decode_chunk=8)
+    plain = Scheduler(cfg, model, **geom)
+    print(f"14B scheduler: KV pool {gb(plain.kv.pool_bytes())} ({plain.kv.n_pages} pages)")
+    runs = {"plain": serve_run("14B plain", plain, requests, eager=False)}
+    line = runs["plain"]["graphed"][1]
+    groups = len(set(admission_groups(runs["plain"]["graphed"][0]).values()))
+    want = (line["decode_steps"] * 7 * cfg.n_layers + groups * 7 * cfg.n_layers,
+            line["decode_steps"] * cfg.n_layers)
+    if (line["hinm_spmm"], line["paged_decode_attn"]) != want:
+        raise AssertionError(f"14B plain: launches {line['hinm_spmm']}, "
+                             f"{line['paged_decode_attn']}, want {want}")
+    noise = {}
+
+    def delta():
+        if "width" not in noise:
+            # the first prompt alone and as row 0 of groups of 2 and 4
+            noise["width"] = prefill_width_noise(cfg, model, plain, [prompts[0]] * 4)
+        return max(bits["max_abs_dlogit"], noise["width"])
+
+    drafter = ModelDrafter(dcfg, draft)
+    out = {"streams": {}}
+    for label, fused in (("fused", True), ("unfused", False)):
+        sched = Scheduler(cfg, model, spec=SpecConfig(k=SPEC_K, drafter=drafter, fused=fused),
+                          **geom)
+        runs[label] = r = serve_run(f"14B spec {label}", sched, requests, eager=fused)
+        reqs, ln = r["graphed"]
+        ln["per_cycle_k1"] = spec_launches(f"14B spec {label}", cfg, dcfg, ln, reqs)
+        drained(f"14B spec {label}", sched)
+        print(f"14B spec {label}: acceptance {ln['acceptance_rate']:.3f}, "
+              f"{ln['tokens_per_verify_step']:.3f} tokens per verify (random weights: the "
+              "0.5B draft all but never predicts the 14B's argmax, so acceptance reads "
+              "near 0; a trained pair is needed for the real number)")
+        out["streams"][label] = spec_vs_plain(f"14B spec {label}", cfg, model, plain, prompts,
+                                              runs["plain"]["graphed"][0], reqs, delta)
+        if fused:
+            out["twins"] = twins_gate("14B spec fused", cfg, model, plain, prompts, r, bits)
+            before_after("14B spec fused", r)
+        del sched
+    out["runs"] = {k: {m: ln for m, (_, ln) in v.items()} for k, v in runs.items()}
+    out["prefill_width_noise"] = noise.get("width")
+    del plain
+    return out
+
+
+@torch.no_grad()
+def draft_target_disagreements(cfg, model, sched, prompts, req, group):
+    """Where the model drafter's argmax parts from the target's along a
+    request's committed stream, under self-drafting: its admission group
+    re-prefilled exactly as `Scheduler` did (the draft's prefill is the
+    same computation), the row inserted into a paged 4-slot pool (the
+    target's: verify rows are bitwise decode steps) and a stripe one (the
+    draft's), then both decoded on the stream's own tokens.  Returns the
+    positions where the argmaxes differ with the target's top-2 margin
+    there, the max |dlogit| between the two paths and max |logit|."""
+    from repro_torch.models import zoo
+    from repro_torch.serve.kv import SlotKVCache
+
+    st, _ = regroup(cfg, model, sched, prompts, group)
+    kv = SlotKVCache(cfg, 4, sched.max_seq, page=16, n_pages=None, device="cuda")
+    dkv = SlotKVCache(cfg, 4, sched.max_seq, device="cuda")
+    row, n = group.index(req.rid), len(req.prompt)
+    for pool in (kv, dkv):
+        pool.insert(pool.acquire(), st, n, row=row, reserve=n + len(req.tokens))
+    tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+    diffs, delta, top = [], 0.0, 0.0
+    for t in range(len(req.tokens) - 1):
+        tok[0, 0] = req.tokens[t]
+        lt = zoo.decode_step(model, cfg, tok, kv.cache)[0, : cfg.vocab].float()
+        ld = zoo.decode_step(model, cfg, tok, dkv.cache)[0, : cfg.vocab].float()
+        delta = max(delta, float((lt - ld).abs().max()))
+        top = max(top, float(lt.abs().max()))
+        if int(lt.argmax()) != int(ld.argmax()):
+            two = torch.topk(lt, 2).values
+            diffs.append((t + 1, float(two[0] - two[1])))
+    return diffs, delta, top
+
+
+def note_rejections(sched) -> list:
+    """Where each rejection of a spec run falls on its request's stream:
+    `sched`'s one host fetch per spec harvest (emits, cnt, judged, active)
+    is wrapped, and before the harvest extends the streams, a cycle whose
+    judged drafts outnumber its accepted ones (cnt - 1) ended in the
+    target's correction, its last emitted token, at index len(tokens) +
+    cnt - 1.  Returns a list the runs fill with (request, index)."""
+    seen, fetch = [], sched._fetch
+
+    def wrapped(*tensors):
+        wait = fetch(*tensors)
+        if len(tensors) != 4:
+            return wait
+
+        def harvest():
+            vals = wait()
+            cnt, judged = vals[1], vals[2]
+            for slot, req in sched._running.items():
+                at = len(req.tokens)
+                for c in range(cnt.shape[0]):
+                    n = int(cnt[c, slot])
+                    if int(judged[c, slot]) > max(n - 1, 0):
+                        seen.append((req, at + n - 1))
+                    at += n
+            return vals
+        return harvest
+
+    sched._fetch = wrapped
+    return seen
+
+
+def self_draft(cfg, model, served):
+    """The gyro-pruned 0.5B drafting for itself at full width (the
+    reference's `run_self_draft` on the card): the served greedy prompts
+    with 33 new tokens (32 decode tokens: 8 full rides of k+1), graphed.
+    Its streams' first 32 tokens must equal the plain run's or part at a
+    near tie; acceptance must be 1.0 with k+1 tokens per verify, or every
+    rejection (`note_rejections`) must fall where the draft's stripe path
+    (plain attention) and the target's paged one (K2) part on the
+    committed stream, at a target top-2 margin within twice their logit
+    gap there, and that gap must stay within the kernels' measured gap to
+    their plain versions on this model (phase 7); both pools drain."""
+    from repro_torch.serve import (ModelDrafter, Request, SamplingParams, Scheduler,
+                                   SpecConfig)
+
+    prompts = served["greedy_prompts"]
+
+    def requests():
+        return [Request(rid=i, prompt=p, params=SamplingParams(max_new_tokens=33), arrival=i)
+                for i, p in enumerate(prompts)]
+
+    sched = Scheduler(cfg, model, spec=SpecConfig(k=SPEC_K, drafter=ModelDrafter(cfg, model)),
+                      max_slots=4, max_seq=256, page=16, decode_chunk=8)
+    seen = note_rejections(sched)
+    r = serve_run("0.5B self-draft", sched, requests, eager=False)
+    reqs, line = r["graphed"]
+    line["per_cycle_k1"] = spec_launches("0.5B self-draft", cfg, cfg, line, reqs)
+    drained("0.5B self-draft", sched)
+    plain_sched = served["sched"]
+    streams = spec_vs_plain("0.5B self-draft", cfg, model, plain_sched, prompts,
+                            served["greedy_reqs"], reqs,
+                            lambda: served["mixed"]["prefill_width_noise"], prefix=True)
+    st = sched.stats
+    # the kernels against their plain versions on this model, teacher-forced
+    # (phase 7): the measured gap of the same two routes
+    noise = served["agree"][0][2]
+    out = dict(line=line, streams=streams, acceptance=st.acceptance_rate,
+               tokens_per_verify=st.tokens_per_verify_step, rejections=[], noise=noise)
+    if st.acceptance_rate == 1.0:
+        ok = st.tokens_per_verify_step == SPEC_K + 1
+    else:
+        groups = admission_groups(reqs)
+        ok = True
+        for q in reqs:
+            rej = q.spec_proposed - q.spec_accepted
+            at = [i for req, i in seen if req is q]
+            if not rej and not at:
+                continue
+            diffs, delta, top = draft_target_disagreements(cfg, model, plain_sched, prompts, q,
+                                                           groups[q.rid])
+            parted = dict(diffs)
+            near = (len(at) == rej and delta <= noise
+                    and all(i in parted and parted[i] <= 2 * delta for i in at))
+            ok &= near
+            out["rejections"].append(dict(rid=q.rid, rejections=rej, at=at, parted_at=diffs,
+                                          max_abs_dlogit=delta, max_logit=top, near_tie=near))
+    print(f"0.5B self-draft: acceptance {st.acceptance_rate:.4f} ({st.draft_accepted}/"
+          f"{st.draft_proposed}), {st.tokens_per_verify_step:.3f} tokens per verify (k+1 = "
+          f"{SPEC_K + 1}); the kernels' gap to their plain versions (phase 7) {noise:.3e}"
+          + "".join(
+              f"\n  request {x['rid']}: {x['rejections']} rejection(s) at tokens {x['at']}; the "
+              f"draft's stripe path and the target's paged one part at "
+              f"{[i for i, _ in x['parted_at']]} (target top-2 margins "
+              f"{', '.join(f'{m:.2e}' for _, m in x['parted_at'])}); max |dlogit| "
+              f"{x['max_abs_dlogit']:.3e} of max |logit| {x['max_logit']:.3f}; near tie "
+              f"{x['near_tie']}" for x in out["rejections"]), flush=True)
+    if not ok:
+        raise AssertionError("0.5B self-draft: a rejection is not a near tie, or tokens per "
+                             "verify is not k+1 at acceptance 1.0")
+    return out
+
+
+def dense_phase(cfg05, model05, served):
+    """Phase 8: the 14B built and packed on the card, K1/K2 at its shapes
+    and a verify row bitwise its decode step, its agreement with the plain
+    versions and a float32 forward, its serving plain and with the 0.5B
+    model drafter; the 0.5B drafting for itself; then codeqwen1.5-7b,
+    starcoder2-15b (2 layers each) and bert-base."""
+    from repro_torch.core import packing
+    from repro_torch.serve.kv import SlotKVCache
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    t0 = time.perf_counter()
+    rows = norm_rows()
+    cfg, model, info = build_packed(BIG)
+    parts = {"build": time.perf_counter() - t0}
+    t = time.perf_counter()
+    out = {"big": {"build": info, "name": BIG}, "norm_rows": rows}
+    big = out["big"]
+    big["k1"] = k1_shapes("14B", cfg, model, gen, ((4, None), (16, "rows"), (512, None)))
+    ps = [p for _, p in layer_projections(cfg, model)]
+    dense = [packing.unpack(p) for p in ps]
+    big["k1_layer"] = {"B4": k1_layer_at("14B decode", gen, ps, dense, 4),
+                       "B16": k1_verify_layer(gen, ps, dense, label="14B verify"),
+                       "B512": k1_layer_at("14B prefill", gen, ps, dense, 512)}
+    del dense
+    big["k2"] = k2_shapes("14B", cfg, (1, SPEC_K + 1, 64, 256), 200)
+    kv = SlotKVCache(cfg, len(PROFILE_LENS), 256, page=16, n_pages=None, device="cuda")
+    slots, tok = live_pool(cfg, model, kv, SPEC_K + 2)
+    bits = big["spec_bits"] = spec_bits(cfg, model, kv.cache, tok)
+    if not bits["bit_equal"]:
+        raise AssertionError("14B: the verify's rows are not bitwise its decode steps")
+    for slot in slots:
+        kv.release(slot)
+    del kv
+    parts["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    big["agree"] = dense_agree("14B", cfg, model, f32=True)
+    parts["agree"] = time.perf_counter() - t
+    t = time.perf_counter()
+    prompts = [np.random.default_rng(20 + i).integers(0, cfg.vocab, n).astype(np.int32)
+               for i, n in enumerate([16, 24, 40, 64, 96, 128, 33, 80])]
+    big["serve"] = big_serve(cfg, model, cfg05, model05, prompts, bits)
+    parts["serve"] = time.perf_counter() - t
+    del model
+    free_card()
+    big["freed_to"] = torch.cuda.memory_allocated()
+    print(f"14B freed: card memory {gb(big['freed_to'])} allocated", flush=True)
+    t = time.perf_counter()
+    out["self_draft"] = self_draft(cfg05, model05, served)
+    parts["self-draft"] = time.perf_counter() - t
+    out["others"] = {}
+    for i, (name, layers) in enumerate(OTHER_DENSE):
+        t = time.perf_counter()
+        ocfg, omodel, oinfo = build_packed(name, layers, seed=5 + i)
+        label = name.split("_")[0]
+        o = out["others"][name] = {"build": oinfo}
+        o["k1"] = k1_shapes(label, ocfg, omodel, gen, ((4, None), (16, "rows"), (512, None)))
+        o["k2"] = k2_shapes(label, ocfg, (1, SPEC_K + 1, 64, 256), 300 + 10 * i)
+        o["agree"] = dense_agree(label, ocfg, omodel)
+        del omodel
+        free_card()
+        parts[name] = time.perf_counter() - t
+    out["parts_s"] = parts
+    print("dense phase parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()),
+          flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 9: training (masked-dense train step, loop, gradual pruning)
 # --------------------------------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 30
@@ -2566,7 +3121,10 @@ def loop_faults(root, dev="cuda"):
     return dict(resume_rel=rel, resumed_at=min(resumed))
 
 
-GRADUAL_LAYERS = 2      # cut from 24: the 8/8 virtual gyro refresh stays near a minute
+# cut from 24, widths full: the 8/8 virtual gyro refresh is host-bound and
+# runs each projection kind's layers in turn; at 2 layers the script came
+# within 30 s of its 1,200 s limit on a slow H100 host
+GRADUAL_LAYERS = 1
 GRADUAL_STEPS = 40
 
 
@@ -2756,10 +3314,17 @@ def main() -> int:
     observed = observe_phase(cfg, model, served)
 
     phase("7. agree")
-    agree_phase(cfg, model)
+    served["agree"] = agree_phase(cfg, model)
 
-    phase("8. train")
+    phase("8. dense family")
+    dense = dense_phase(cfg, model, served)
+    big = dense["big"]
+    k1 += big["k1"] + [c for o in dense["others"].values() for c in o["k1"]]
+    k2 += big["k2"] + [c for o in dense["others"].values() for c in o["k2"]]
+
+    phase("9. train")
     trained = train_phase()
+    phase()
 
     k2_rep = next(c for c in k2 if c["case"] == "s=1 window=0" and c["dtype"] == "bfloat16")
     k2_verify = next(c for c in k2 if c["case"] == "verify s=4" and c["dtype"] == "bfloat16")
@@ -2770,7 +3335,9 @@ def main() -> int:
     mixed = served["mixed"]["runs"]
     shared = served["shared"]["runs"]
     paths = ({"greedy": served} | {f"mixed {k}": v["graphed"] for k, v in mixed.items()}
-             | {f"share {k}": v["graphed"] for k, v in shared.items()})
+             | {f"share {k}": v["graphed"] for k, v in shared.items()}
+             | {f"14B {k}": v["graphed"] for k, v in big["serve"]["runs"].items()}
+             | {"0.5B self-draft": dense["self_draft"]["line"]})
     by_path = {name: {p: paths[p][name] for p in paths}
                for name in ("hinm_spmm", "paged_decode_attn")}
     for name, counts in by_path.items():
@@ -2783,6 +3350,9 @@ def main() -> int:
                    "down), B=4, bf16, V=32 (variant rows)",
              crossover={"rows_max_b": K1_CROSSOVER, "layer_ms_by_B": crossover},
              launches_by_path=by_path["hinm_spmm"],
+             launches_per_14b_cycle=big["serve"]["runs"]["fused"]["graphed"]["per_cycle_k1"],
+             dense_family={BIG: big["k1_layer"]} | {
+                 name: {"layers": o["build"]["layers"]} for name, o in dense["others"].items()},
              prefill=k1_prefill_layer(k1, served["prefill_k1_per_admission"]),
              extension=layer.pop("extension"),
              **{**layer,
@@ -2794,6 +3364,9 @@ def main() -> int:
              replaces="src/repro/kernels/paged_attn.py:116",
              launches=served["paged_decode_attn"],
              launches_by_path=by_path["paged_decode_attn"],
+             dense_family={BIG: {f"s={c['s']}": {k: c[k] for k in (
+                 "KV", "G", "hd", "n_splits", "n_tiles", "ms", "plain_ms", "library_ms",
+                 "sdpa_only_ms", "bound_ms", "bound_by", "max_abs_err")} for c in big["k2"]}},
              verify={k: k2_verify[k] for k in ("s", "n_splits", "ms", "plain_ms", "library_ms",
                                                "sdpa_only_ms", "bound_ms", "bound_by",
                                                "max_abs_err", "rows_bit_equal_s1")},
@@ -2872,6 +3445,20 @@ def main() -> int:
           f"; gradual recovery gap gyro {gr['gyro']['gap']:+.4f} noperm "
           f"{gr['noperm']['gap']:+.4f} (refresh {gr['gyro']['refreshes'][0]['wall_s']:.1f} s); "
           f"entry point exit {trained['entry_point']['exit']}; phase {trained['wall_s']:.1f} s")
+    b, sd = big["build"], dense["self_draft"]
+    print(f"dense family: 14B {gb(b['packed_bytes'])} packed vs {gb(b['dense_bytes'])} dense, "
+          f"peak {gb(b['peak'])}; agree plain {big['agree']['plain'][0]:.2e}, f32 "
+          f"{big['agree']['f32'][0]:.2e}; verify bitwise decode {big['spec_bits']['bit_equal']}; "
+          + "; ".join(f"{k} {v['graphed']['decode_tok_s']:.1f} decode tok/s, p50 step "
+                      f"{v['graphed']['p50_step_ms']:.2f} ms, p50 TTFT "
+                      f"{v['graphed']['p50_ttft_ms']:.1f} ms, idle "
+                      f"{v['graphed']['idle_share']:.1%}, acceptance "
+                      f"{v['graphed']['acceptance_rate']:.3f}"
+                      for k, v in big["serve"]["runs"].items())
+          + f"; self-draft acceptance {sd['acceptance']:.4f}, {sd['tokens_per_verify']:.3f} "
+          f"tokens per verify; others agree " + ", ".join(
+              f"{n} {o['agree']['plain'][0]:.2e}" for n, o in dense["others"].items()))
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in SECONDS.items()))
     print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

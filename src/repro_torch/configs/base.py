@@ -27,7 +27,7 @@ ARCH_IDS = (
     "granite_moe_3b_a800m",
 )
 PAPER_IDS = ("bert_base", "deit_base")
-PORTED_IDS = ("qwen2_0_5b",)
+PORTED_IDS = ("qwen2_0_5b", "qwen2_5_14b", "codeqwen1_5_7b", "starcoder2_15b", "bert_base")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -108,9 +108,47 @@ def rmsnorm_init(d: int, dtype=torch.float32, *, device) -> Norm:
     return Norm(torch.ones((d,), dtype=dtype, device=device))
 
 
+# a norm's row mean (`_row_mean`): the equal parts a row is cut into, the
+# multiple a row is padded to (each part a whole number of 16-byte f32
+# vectors) and the most values a part may hold
+ROW_PARTS = 16
+ROW_ALIGN = 4 * ROW_PARTS
+ROW_PART_MAX = 4096
+
+
+def _row_mean(x32: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim (kept), summed in an order that does not
+    depend on how many rows the call holds or where a row sits.
+
+    PyTorch's CUDA reduction sizes its blocks from the output count: a
+    block holds 512 threads, and the lanes one output gets shrink as more
+    outputs share the block, so one sum over d_model 5120 runs on 128
+    lanes for decode's 4 rows and on 32 for a verify's 16, and a row's bits
+    follow its batch.  Here a row is cut into ROW_PARTS equal parts, each
+    part averaged, then the parts' means: the first reduction has at least
+    ROW_PARTS outputs, which fill a block's height whatever the row count,
+    so each part gets the same lanes; the second gives each of a row's
+    ROW_PARTS values a lane of its own.  That holds while one part's sum
+    is not split over warps (at 8,192 values a part; ROW_PART_MAX keeps
+    well below) and while every part starts on a 16-byte boundary (the
+    vector loads then begin at its first value wherever the row sits):
+    rows are padded with zeros to a multiple of ROW_ALIGN, and the
+    padding's share of the mean is scaled back out."""
+    d = x32.shape[-1]
+    pad = -d % ROW_ALIGN
+    if pad:
+        x32 = torch.nn.functional.pad(x32, (0, pad))
+    width = (d + pad) // ROW_PARTS
+    if width > ROW_PART_MAX:
+        raise ValueError(f"a norm over {d} values gives parts of {width} > {ROW_PART_MAX}")
+    parts = x32.reshape(*x32.shape[:-1], ROW_PARTS, width).mean(dim=-1)
+    mean = parts.mean(dim=-1, keepdim=True)
+    return mean * ((d + pad) / d) if pad else mean
+
+
 def rmsnorm(p: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    var = _row_mean(x32 * x32)
     out = x32 * torch.rsqrt(var + eps) * p.scale.float()
     return out.to(x.dtype)
 
@@ -122,8 +160,8 @@ def layernorm_init(d: int, dtype=torch.float32, *, device) -> Norm:
 
 def layernorm(p: Norm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    mu = _row_mean(x32)
+    var = _row_mean((x32 - mu) ** 2)
     out = (x32 - mu) * torch.rsqrt(var + eps)
     out = out * p.scale.float() + p.bias.float()
     return out.to(x.dtype)

@@ -1,7 +1,8 @@
 """Continuous-batching serving runtime (port of `repro.serve`): `Scheduler`
-over a paged `SlotKVCache` with greedy and sampled requests, n-gram
-speculative decoding (`SpecConfig`) and refcounted prefix sharing with
-chunked prefill (`PrefixIndex`), its decode, prefill and extension
+over a paged `SlotKVCache` with greedy and sampled requests, speculative
+decoding with the n-gram or the model drafter (`SpecConfig`,
+`ModelDrafter`) and refcounted prefix sharing with chunked prefill
+(`PrefixIndex`), its decode, prefill and extension
 programs run as captured CUDA graphs (`graphs`) under double-buffered
 admission, the `ServeEngine` facade, and its observability: telemetry
 (`Telemetry`: metrics registry and Chrome-trace spans) and the flight
@@ -16,11 +17,12 @@ from repro_torch.serve.prefix import PrefixIndex, PrefixMatch
 from repro_torch.serve.request import (Request, RequestState, SamplingParams,
                                        ServeStats)
 from repro_torch.serve.scheduler import Scheduler, param_bytes
-from repro_torch.serve.spec import NgramDrafter, SpecConfig
+from repro_torch.serve.spec import ModelDrafter, NgramDrafter, SpecConfig
 from repro_torch.serve.telemetry import (MetricsRegistry, Telemetry, TraceRecorder,
                                          resolve_telemetry)
 
-__all__ = ["FlightEvent", "FlightRecorder", "MetricsRegistry", "NgramDrafter", "PrefixIndex",
+__all__ = ["FlightEvent", "FlightRecorder", "MetricsRegistry", "ModelDrafter", "NgramDrafter",
+           "PrefixIndex",
            "PrefixMatch", "Request", "RequestState", "SamplingParams", "Scheduler",
            "ServeEngine", "ServeStats", "SlotKVCache", "SpecConfig", "Telemetry",
            "TraceRecorder", "diff_records", "load_jsonl", "param_bytes", "replay",

@@ -147,9 +147,8 @@ class FlightRecorder:
                 "decode_steps": scheduler.stats.decode_steps,
                 "requests": _requests_snapshot(scheduler),
                 "pool": _pool_snapshot(scheduler.kv),
-                # the model drafter's pool waits for its slice (ROADMAP
-                # Queue 1 item 8); the key stays for the reference's layout
-                "draft_pool": None,
+                "draft_pool": (_pool_snapshot(scheduler.draft_kv)
+                               if scheduler.draft_kv is not None else None),
                 "pending_admits": [
                     [r.rid for r in rec[0]]
                     for rec in scheduler._pending_admits],

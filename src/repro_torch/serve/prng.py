@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 M32 = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -47,10 +49,12 @@ def threefry2x32(k1, k2, x0, x1):
     return x0, x1
 
 
-def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
+def PRNGKey(seed: int, device="cuda") -> torch.Tensor:
     """`jax.random.PRNGKey(seed)` without 64-bit mode: the seed's low 32
-    bits under a zero high word.  Returns an int64 (2,) key."""
-    return torch.tensor([0, int(seed) & M32], dtype=torch.int64, device=device)
+    bits under a zero high word.  Returns an int64 (2,) key on `device`
+    (the card unless the caller asks for the CPU, as every entry point)."""
+    return torch.tensor([0, int(seed) & M32], dtype=torch.int64,
+                        device=resolve_device(device))
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:

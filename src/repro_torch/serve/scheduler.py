@@ -43,10 +43,15 @@ port's bit-exact threefry): a request's sampled stream depends only on
 its seed and token index, never on its slot or co-residents.
 
 With `spec=SpecConfig(...)` the decode phase runs draft/verify cycles
-instead (`serve/spec`): the n-gram drafter proposes `k` tokens per slot,
-one multi-token verify forward scores them all, and the pool keeps the
+instead (`serve/spec`): a drafter proposes `k` tokens per slot, one
+multi-token verify forward scores them all, and the pool keeps the
 accepted rows while sweeping the rejected ones.  Greedy and "match"-mode
-sampled requests emit exactly the non-speculative stream.
+sampled requests emit exactly the non-speculative stream.  The n-gram
+drafter looks the proposals up in each slot's token history; the model
+drafter (a paired small model, `ModelDrafter`) runs k + 1 greedy decode
+steps in its own stripe pool, which is prefilled with the same prompts at
+admission and rolled back with the target's accept count, so both pools
+always hold the same committed tokens.
 
 With prefix sharing on (`prefix_share`, "auto": on for a paged pool of a
 prefix-sharing family under the continuous policy, as the reference's),
@@ -73,7 +78,7 @@ from host state, for replay and first-divergence diffs.  Neither adds a
 sync, and nothing of theirs runs inside a captured body: a body runs only
 when its program is built, so per-step instruments sit around the replay.
 
-What waits for later slices: the model drafter and multi-device meshes.
+What waits for later slices: multi-device meshes.
 """
 from __future__ import annotations
 
@@ -182,8 +187,9 @@ class Scheduler:
         self.default_eos = eos if 0 <= eos < cfg.vocab else -1
         self.spec = spec
         self.drafter = None
+        self.draft_kv = None
         if spec is not None:
-            self._check_spec(spec)
+            self._check_spec(spec, rng_seed)
         self.kv = SlotKVCache(cfg, max_slots, max_seq, page=page, n_pages=n_pages,
                               device=self.device, metrics=m, flight=self.flight)
         # paged-attention backend, resolved once per scheduler; every
@@ -272,8 +278,9 @@ class Scheduler:
                 body()
         self.graphs.run(key, run)
 
-    def _check_spec(self, spec) -> None:
-        """Validate a SpecConfig, resolve its drafter and the cycle count."""
+    def _check_spec(self, spec, rng_seed: int) -> None:
+        """Validate a SpecConfig, resolve its drafter and the cycle count;
+        a model drafter gets its own stripe pool."""
         cfg = self.cfg
         if not zoo.supports_spec_decode(cfg):
             raise ValueError(f"{cfg.family!r} (window={cfg.window}) has no "
@@ -294,12 +301,20 @@ class Scheduler:
         d = spec.drafter
         if d == "ngram":
             d = spec_mod.NgramDrafter(spec.ngram)
-        if d == "model" or getattr(d, "kind", None) == "model":
-            raise ValueError(spec_mod.drafter.MODEL_DRAFTER_WAITS)
-        if getattr(d, "kind", None) != "ngram":
-            raise ValueError(f"unknown drafter {d!r}: pass \"ngram\" or an "
-                             "NgramDrafter instance")
+        elif d == "model":
+            d = spec_mod.ModelDrafter.from_zoo(cfg, rng_seed, device=self.device)
+        if getattr(d, "kind", None) not in ("ngram", "model"):
+            raise ValueError(f"unknown drafter {d!r}: pass \"ngram\", \"model\", or a "
+                             "Drafter instance with kind in ('ngram', 'model')")
         self.drafter = d
+        if d.kind == "model":
+            # the draft model keeps its own stripe pool, rolled back in
+            # lockstep with the target, so both pools always hold the same
+            # committed token stream
+            self.draft_kv = SlotKVCache(d.cfg, self.max_slots, self.max_seq,
+                                        device=self.device, metrics=self.telemetry.registry,
+                                        metrics_labels={"pool": "draft"}, flight=self.flight,
+                                        flight_label="draft")
 
     def _alloc_state(self) -> None:
         """The per-slot decode state and the decode programs' static output
@@ -340,6 +355,8 @@ class Scheduler:
             self._verify_out = {"pos0": vec(i32), "emits": vec(i32, s, k1),
                                 "cnt": vec(i32), "judged": vec(i32)}
             self._drafts = vec(i32, s, self.spec.k)
+            # the draft pool's positions before an unfused proposal
+            self._draft_pos0 = vec(i32)
 
     def _reset_state(self, rng_seed: int) -> None:
         for t in (self._tok, self._active, self._rem, self._temp, self._topk, self._topp,
@@ -366,6 +383,8 @@ class Scheduler:
         if self.prefix is not None:
             self.prefix = PrefixIndex(self.kv.page, flight=self.flight)
         self.kv.reset_all()
+        if self.draft_kv is not None:
+            self.draft_kv.reset_all()
         self._reset_state(rng_seed)
         self.stats = ServeStats(0.0, 0.0, 0, self.stats.packed_param_bytes,
                                 self.stats.dense_param_bytes)
@@ -545,8 +564,8 @@ class Scheduler:
             self._admit_group(group, finished)
 
     def _prefill_buffers(self, s_b: int, k_b: int) -> dict:
-        """The static inputs, stripe template and first-token output of the
-        prefill graphs of one (bucket, width)."""
+        """The static inputs, stripe template (and the draft model's) and
+        first-token output of the prefill graphs of one (bucket, width)."""
         io = self._prefill_io.get((s_b, k_b))
         if io is None:
             def vec(dtype, *shape):
@@ -557,6 +576,8 @@ class Scheduler:
                 "seeds": vec(torch.int64), "temp": vec(torch.float32),
                 "topk": vec(torch.int32), "topp": vec(torch.float32),
                 "first": vec(torch.int32), "cache": self.kv.template(k_b)}
+            if self.draft_kv is not None:
+                io["draft_cache"] = self.draft_kv.template(k_b)
         return io
 
     def _prefill_body(self, io: dict, stochastic: bool):
@@ -575,6 +596,16 @@ class Scheduler:
             else:
                 first = sampler.greedy(logits)
             io["first"].copy_(first)
+        return body
+
+    def _draft_prefill_body(self, io: dict):
+        """Prefill `io`'s tokens into its draft stripe template (the draft
+        model's own rows of the same prompts)."""
+        def body():
+            cache = io["draft_cache"]
+            cache["pos"].zero_()
+            zoo.prefill(self.drafter.params, self.drafter.cfg, io["tokens"], cache,
+                        n_rows=io["n_rows"])
         return body
 
     def _admit_group(self, group: list[Request], finished: list[Request]) -> None:
@@ -612,8 +643,12 @@ class Scheduler:
         with self.telemetry.annotation("serve_prefill"):
             self._program(("prefill", s_b, k_b, stochastic), self._prefill_body(io, stochastic))
         first = self._fetch(io["first"])
+        if self.draft_kv is not None:
+            # the draft model prefills the same prompts into its own pool
+            self._program(("draft_prefill", s_b, k_b), self._draft_prefill_body(io))
         t1 = time.perf_counter()
         cache_k = io["cache"]
+        draft_cache_k = io.get("draft_cache")
         self.stats.prefill_rows += sum(len(r.prompt) for r in group)
         if self.telemetry.enabled:
             tr = self.telemetry.tracer
@@ -637,7 +672,9 @@ class Scheduler:
             # the group keeps its own copy of the stripe (its first tokens
             # are already on their way to the host)
             cache_k = {name: leaf.clone() for name, leaf in cache_k.items()}
-            self._pending_admits.append((group, first, cache_k))
+            if draft_cache_k is not None:
+                draft_cache_k = {name: leaf.clone() for name, leaf in draft_cache_k.items()}
+            self._pending_admits.append((group, first, cache_k, draft_cache_k))
             self._pending_slots += k
             if self.kv.paged:
                 self._pending_pages += sum(self.kv.pages_needed(self._reserve_rows(r))
@@ -645,7 +682,7 @@ class Scheduler:
             self._m_overlap_admit.inc()
             return
         self.stats.prefill_seconds += time.perf_counter() - t0
-        self._commit_group((group, first, cache_k), finished)
+        self._commit_group((group, first, cache_k, draft_cache_k), finished)
 
     def _commit_admissions(self, finished: list[Request]) -> None:
         """Land every group prepared under the previous chunk: one
@@ -660,7 +697,7 @@ class Scheduler:
     def _commit_group(self, rec: tuple, finished: list[Request]) -> None:
         """One admission group's first-token sync (= TTFT), then its slots:
         insert the prefilled rows and arm the decode state."""
-        group, first, cache_k = rec
+        group, first, cache_k, draft_cache_k = rec
         tc0 = time.perf_counter()
         if self._chunk_in_flight:  # canary: committing under a chunk blocks
             self._m_inflight_syncs.inc()
@@ -688,6 +725,11 @@ class Scheduler:
                 # index this prompt's full pages (retention references): the
                 # next identical prefix maps them instead of recomputing them
                 self.prefix.register(req.prompt, self.kv.slot_pages(slot), self.kv)
+            if self.draft_kv is not None:
+                dslot = self.draft_kv.acquire()
+                assert dslot == slot, "draft pool diverged from target pool"
+                self.draft_kv.insert(slot, draft_cache_k, len(req.prompt), row=row,
+                                     reserve=len(req.prompt) + p.max_new_tokens)
             armed.append((slot, req, first_i, eos))
             self._active_host[slot] = True
             req.state = RequestState.DECODING
@@ -723,6 +765,12 @@ class Scheduler:
         self.kv.map_slot(slot, shared, len(shared) * self.kv.page, self._reserve_rows(req),
                          cow_src=m.cow_src if m is not None else None,
                          cow_rows=m.cow_rows if m is not None else 0)
+        if self.draft_kv is not None:
+            # the draft pool acquires in lockstep now (slot ids stay aligned
+            # with the target pool); its stripe is prefilled in one shot when
+            # the admission completes
+            dslot = self.draft_kv.acquire()
+            assert dslot == slot, "draft pool diverged from target pool"
         hit = m.total_rows if m is not None else 0
         req.prefix_hit_tokens = hit
         req.prefill_cursor = hit
@@ -854,9 +902,10 @@ class Scheduler:
                             finished: list[Request]) -> None:
         """Graduate a finished extension admission to decode: register its
         full prompt pages in the prefix index (what a later identical prefix
-        hits) and arm its decode lane, with the n-gram history seeded from
-        the whole prompt, page-mapped rows included; or finish at once on a
-        first-token EOS or a one-token budget."""
+        hits), prefill the draft stripe with the whole prompt in one shot
+        under a model drafter, and arm its decode lane, with the n-gram
+        history seeded from the whole prompt, page-mapped rows included; or
+        finish at once on a first-token EOS or a one-token budget."""
         p = req.params
         eos = self._eff_eos(req)
         req.tokens.append(first_i)
@@ -877,8 +926,21 @@ class Scheduler:
                 self.flight.emit("graduate", rid=req.rid, slot=slot, first=first_i,
                                  finished=True)
             self.kv.release(slot)
+            if self.draft_kv is not None:
+                self.draft_kv.release(slot)
             self._finish(req, finished)
             return
+        if self.draft_kv is not None:
+            n = len(req.prompt)
+            s_b = self._bucket_len(n)
+            io = self._prefill_buffers(s_b, 1)
+            tokens = np.zeros((1, s_b), np.int32)
+            tokens[0, :n] = req.prompt
+            io["tokens"].copy_(to_device(torch.from_numpy(tokens), self.device))
+            io["n_rows"].fill_(n)
+            self._program(("draft_prefill", s_b, 1), self._draft_prefill_body(io))
+            self.draft_kv.insert(slot, io["draft_cache"], n, row=0,
+                                 reserve=n + p.max_new_tokens)
         self._arm([(slot, req, first_i, eos)])
         self._active_host[slot] = True
         req.state = RequestState.DECODING
@@ -950,6 +1012,8 @@ class Scheduler:
 
     def _release_slot(self, slot: int) -> None:
         self.kv.release(slot)
+        if self.draft_kv is not None:
+            self.draft_kv.release(slot)
         self._running.pop(slot)
         self._active_host[slot] = False
 
@@ -1090,30 +1154,62 @@ class Scheduler:
         hist, hlen = spec_mod.append_history(hist, hlen, emits, cnt)
         return pos0, undo, emits, cnt, judged, (tok, active, rem, gens, hist, hlen)
 
+    def _draft_steps(self, tok: torch.Tensor):
+        """The model drafter's proposal: k + 1 greedy decode steps of the
+        draft model in its pool from the pending token `tok` (B, 1), over
+        the vocabulary both models share.  The extra step writes the last
+        draft's own row, so the draft pool tracks the target's row for row
+        and one accept count rolls both back.  Returns (drafts (B, k), the
+        draft pool's positions before the steps)."""
+        dcfg, dcache = self.drafter.cfg, self.draft_kv.cache
+        vcap = min(dcfg.vocab, self._vocab)
+        dpos0 = zoo.cache_position(dcfg, dcache)
+        steps = []
+        for _ in range(self.spec.k + 1):
+            logits = zoo.decode_step(self.drafter.params, dcfg, tok, dcache)
+            tok = logits[:, :vcap].argmax(dim=-1).to(torch.int32)[:, None]
+            steps.append(tok)
+        return torch.cat(steps[: self.spec.k], dim=1), dpos0
+
     def _spec_fused_body(self, stochastic: bool, any_reject: bool):
         """Every cycle of a step on the device (the reference's fused scan):
-        n-gram proposal, verify, acceptance, history append and
-        `zoo.cache_rollback`, into `_spec_out`; the lanes move on in place."""
+        the proposal (n-gram lookup, or the draft model's steps), verify,
+        acceptance, history append and `zoo.cache_rollback`, the draft pool
+        rolled back with the same accept count, into `_spec_out`; the lanes
+        move on in place."""
         s_width, out = self.spec.k + 1, self._spec_out
 
         def body():
             lanes = self._lanes()
             for c in range(self._spec_cycles):
                 tok, _, _, _, hist, hlen = lanes
-                drafts = spec_mod.ngram_propose(hist, hlen, tok, self.spec.k,
-                                                n=self.drafter.n)
+                if self.draft_kv is None:
+                    drafts = spec_mod.ngram_propose(hist, hlen, tok, self.spec.k,
+                                                    n=self.drafter.n)
+                else:
+                    drafts, dpos0 = self._draft_steps(tok)
                 pos0, undo, emits, cnt, judged, lanes = self._verify(
                     lanes, drafts, stochastic, any_reject)
                 zoo.cache_rollback(self.cfg, self.kv.cache, undo, pos0, cnt, s_width)
+                if self.draft_kv is not None:
+                    zoo.cache_rollback(self.drafter.cfg, self.draft_kv.cache, None, dpos0, cnt,
+                                       s_width)
                 for name, val in (("emits", emits), ("cnt", cnt), ("judged", judged)):
                     out[name][c].copy_(val)
             self._store(lanes)
         return body
 
     def _propose_body(self):
-        """The n-gram drafter's (slots, k) proposals into `_drafts`."""
-        self._drafts.copy_(spec_mod.ngram_propose(self._hist, self._hlen, self._tok,
-                                                  self.spec.k, n=self.drafter.n))
+        """The drafter's (slots, k) proposals into `_drafts` (and, under a
+        model drafter, its pool's positions before them into
+        `_draft_pos0`)."""
+        if self.draft_kv is None:
+            self._drafts.copy_(spec_mod.ngram_propose(self._hist, self._hlen, self._tok,
+                                                      self.spec.k, n=self.drafter.n))
+            return
+        drafts, dpos0 = self._draft_steps(self._tok)
+        self._drafts.copy_(drafts)
+        self._draft_pos0.copy_(dpos0)
 
     def _verify_body(self, stochastic: bool, any_reject: bool):
         """One verify of `_drafts` with acceptance and history, into
@@ -1130,7 +1226,8 @@ class Scheduler:
     def _spec_cycles_run(self, stochastic: bool, any_reject: bool) -> None:
         """Every cycle of a step into `_spec_out`.  Fused: one program.
         Unfused: per cycle the proposal and the verify as programs of their
-        own (the drafts' host time kept apart) and the rollback through
+        own (the drafts' host time kept apart) and the rollbacks (the
+        target's, and the draft pool's under a model drafter) through
         `SlotKVCache.rollback`, as the reference dispatches them."""
         if self.spec.fused:
             with self.telemetry.annotation("serve_spec_fused", step=self.stats.decode_steps):
@@ -1138,6 +1235,8 @@ class Scheduler:
                               self._spec_fused_body(stochastic, any_reject))
             self._m_spec_dispatch.inc()
             self.kv.note_scan_rollbacks(self._spec_cycles)
+            if self.draft_kv is not None:
+                self.draft_kv.note_scan_rollbacks(self._spec_cycles)
             return
         vout, tele = self._verify_out, self.telemetry.enabled
         for c in range(self._spec_cycles):
@@ -1152,8 +1251,11 @@ class Scheduler:
                 self._program(("verify", stochastic, any_reject),
                               self._verify_body(stochastic, any_reject))
                 self.kv.rollback(vout["pos0"], vout["cnt"], self.spec.k + 1)
-            # the unfused chain per cycle: proposal + verify + rollback
-            self._m_spec_dispatch.inc(3)
+                if self.draft_kv is not None:
+                    self.draft_kv.rollback(self._draft_pos0, vout["cnt"], self.spec.k + 1)
+            # the unfused chain per cycle: proposal + verify + target
+            # rollback (+ the draft's rollback under a model drafter)
+            self._m_spec_dispatch.inc(3 if self.draft_kv is None else 4)
             if tele:
                 td2 = time.perf_counter()
                 self._m_spec_draft.observe(td1 - td0)

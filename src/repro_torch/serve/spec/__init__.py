@@ -2,14 +2,14 @@
 `Scheduler(spec=...)`).
 
 Decode reads the whole packed model to emit one token per slot.
-Speculation flips the ratio: the n-gram drafter guesses ``k`` tokens per
-slot (`drafter.py`), one multi-token verify forward scores them all
+Speculation flips the ratio: a drafter (n-gram lookup, or a paired small
+model) guesses ``k`` tokens per slot (`drafter.py`), one multi-token
+verify forward scores them all
 (`verify.py` + `zoo.verify_step`), and the paged slot pool keeps the
 accepted prefix while rolling the rejected suffix back
 (`SlotKVCache.rollback`, or `zoo.cache_rollback` inside the fused loop).
 Greedy and "match"-mode stochastic streams are token-identical to the
-non-speculative ones.  The model drafter waits for a `draft_arch` pairing
-the port can load (ROADMAP.md, Queue 1 item 8).
+non-speculative ones.
 """
 from __future__ import annotations
 
@@ -40,8 +40,10 @@ class SpecConfig:
     ``k`` — draft tokens per verify step (verify width k + 1); a request
     lowers its own cap with `SamplingParams.spec_k` (0 = off for it; it
     still rides the verify batch at one token per step).
-    ``drafter`` — "ngram" or an `NgramDrafter` instance ("model" and a
-    `ModelDrafter` raise until the model drafter is ported).
+    ``drafter`` — "ngram" (host-free prompt lookup), "model" (the target's
+    `draft_arch` pairing with random weights on the scheduler's device), or
+    a `Drafter` instance (the way to supply real draft weights or a reduced
+    config).
     ``ngram`` — lookup n-gram order of the "ngram" drafter.
     ``fused`` — run every cycle of a scheduler step (draft, verify, accept,
     rollback, history append) on the device with one host sync per step;

@@ -8,19 +8,21 @@ of the trailing n-gram in it and proposes the tokens that followed.  No
 extra model and no extra weight reads; acceptance is high exactly when
 the output re-walks its own context.
 
-``ModelDrafter`` (a paired small draft model in its own stripe pool)
-waits: its only pairing, qwen2_5_14b -> qwen2_0_5b, needs qwen2_5_14b,
-which the port does not load yet (ROADMAP.md, Queue 1 item 8).
+``ModelDrafter`` is a paired small model (qwen2_0_5b drafting for
+qwen2_5_14b, declared as ``ArchConfig.draft_arch`` and resolved by
+`from_zoo`).  The scheduler runs it for ``k + 1`` greedy decode steps a
+cycle in its own stripe `SlotKVCache`; the extra step writes the last
+draft's own cache row, so the draft pool tracks the target pool row for
+row and the same accept count rolls both back.  It costs the draft
+model's weight reads and prefill, and wins where the draft predicts the
+target (a trained pair); the n-gram drafter costs neither.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-MODEL_DRAFTER_WAITS = (
-    "the model drafter is not ported: its only draft_arch pairing "
-    "(qwen2_5_14b -> qwen2_0_5b) needs qwen2_5_14b, which waits in ROADMAP.md "
-    "Queue 1 item 8; use the \"ngram\" drafter")
+from repro_torch.device import resolve_device
 
 
 def seed_history(prompt, first_token: int, max_seq: int):
@@ -96,9 +98,41 @@ class NgramDrafter(Drafter):
 
 
 class ModelDrafter(Drafter):
-    """Paired small draft model: not ported yet (see the module docstring)."""
+    """Paired small draft model with its own stripe KV pool.  ``params`` is
+    the draft model (the port's model object, as `Scheduler` takes)."""
 
     kind = "model"
 
-    def __init__(self, *args, **kwargs):
-        raise ValueError(MODEL_DRAFTER_WAITS)
+    def __init__(self, cfg, params):
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                f"draft model family {cfg.family!r} is not supported: the drafter "
+                "decodes plain token prompts (no embeds frontend)")
+        self.cfg = cfg
+        self.params = params
+
+    @classmethod
+    def from_zoo(cls, target_cfg, rng_seed: int = 0, reduced: dict | None = None,
+                 device="cuda"):
+        """Resolve ``target_cfg.draft_arch`` through the port's configs and
+        init the draft's weights from a seeded generator on `device`.
+        ``reduced`` overrides shrink the draft to match a `.reduced()`
+        target; the vocabularies must line up (drafts are ids the target
+        scores).  The weights are random: pass checkpointed ones to the
+        constructor for a real deployment."""
+        from repro_torch.configs.base import load_arch
+        from repro_torch.models import zoo
+
+        arch = getattr(target_cfg, "draft_arch", "")
+        if not arch:
+            raise ValueError(f"{target_cfg.name}: no draft_arch pairing declared")
+        cfg = load_arch(arch)
+        if reduced is not None:
+            cfg = cfg.reduced(**reduced)
+        if cfg.vocab > target_cfg.vocab:
+            raise ValueError(
+                f"draft vocab {cfg.vocab} exceeds target vocab {target_cfg.vocab}: "
+                "drafts would be unscorable ids")
+        device = resolve_device(device)
+        gen = torch.Generator(device=device).manual_seed(rng_seed)
+        return cls(cfg, zoo.init(cfg, gen, device))

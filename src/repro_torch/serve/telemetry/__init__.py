@@ -12,9 +12,9 @@
   step; every wall-clock histogram and span on the hot path is skipped;
 - **enabled** — admission / prefill / decode / host-gap / spec phases are
   timed into histograms from host clocks at the scheduler's existing
-  sync points (no sync is added), the KV pool's occupancy gauges update,
-  and every request accumulates lifecycle spans exported as
-  Perfetto-loadable trace JSON.
+  sync points (no sync is added), the KV pool's occupancy gauges update
+  (a model drafter's pool under ``{"pool": "draft"}``), and every request
+  accumulates lifecycle spans exported as Perfetto-loadable trace JSON.
 
 Resolution order for `Scheduler(telemetry=...)`: a `Telemetry` instance
 is used as-is; `True`/`False` build a fresh enabled/disabled bundle;

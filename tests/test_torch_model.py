@@ -188,3 +188,30 @@ def test_serve_steps_match(models):
         _close(jlog, tlog)
     for name in ("k", "v"):
         _close(jc[name], tc[name])
+
+
+@pytest.mark.parametrize("d", [100, 896, 5120])
+def test_norms_match_reference_and_rows_stand_alone(d):
+    """RMSNorm and LayerNorm (`module._row_mean`: ROW_PARTS parts, rows
+    padded to ROW_ALIGN where d needs it, 100 here) against the
+    reference's on the same f32 rows within 1e-5, each row bitwise the
+    same alone as in the batch; a row too long for its parts raises."""
+    from repro.models import module as jM
+    from repro_torch.models import module as M
+
+    rng = np.random.default_rng(d)
+    x = rng.standard_normal((6, d)).astype(np.float32)
+    scale = (rng.random(d) + 0.5).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    p = M.Norm(torch.from_numpy(scale), torch.from_numpy(bias))
+    xt = torch.from_numpy(x)
+    for fn, want in ((M.rmsnorm, jM.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x))),
+                     (M.layernorm, jM.layernorm({"scale": jnp.asarray(scale),
+                                                 "bias": jnp.asarray(bias)}, jnp.asarray(x)))):
+        got = fn(p, xt)
+        _close(want, got.numpy(), 1e-5)
+        for i in range(len(x)):
+            assert torch.equal(fn(p, xt[i: i + 1]), got[i: i + 1])
+    with pytest.raises(ValueError, match="parts of"):
+        M.rmsnorm(M.Norm(torch.ones(M.ROW_PARTS * M.ROW_PART_MAX + 1)),
+                  torch.ones(1, M.ROW_PARTS * M.ROW_PART_MAX + 1))

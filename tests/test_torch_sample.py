@@ -49,7 +49,7 @@ def test_threefry2x32_known_answers(key, ctr, want):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_keys_and_fold_in_integer_equal(seed):
-    key = prng.PRNGKey(seed)
+    key = prng.PRNGKey(seed, "cpu")
     np.testing.assert_array_equal(key.numpy(), _key(seed))
     jkey = jax.random.PRNGKey(seed)
     want = np.stack([np.asarray(jax.random.fold_in(jkey, np.uint32(d))) for d in DATA])
@@ -83,7 +83,7 @@ def test_categorical_draws_equal_on_fixed_logits():
     gens = rng.integers(0, 200, 64).astype(np.int32)
     base = jax.random.PRNGKey(0)
     jkeys = jsampler.fold_keys(base, jnp.asarray(seeds), jnp.asarray(gens))
-    keys = sampler.fold_keys(prng.PRNGKey(0), torch.from_numpy(seeds),
+    keys = sampler.fold_keys(prng.PRNGKey(0, "cpu"), torch.from_numpy(seeds),
                              torch.from_numpy(gens))
     np.testing.assert_array_equal(keys.numpy(), np.asarray(jkeys).astype(np.int64))
     want = np.asarray(jax.vmap(jax.random.categorical)(jkeys, jnp.asarray(logits)))
@@ -134,7 +134,8 @@ def test_sample_matches():
     jkeys = jsampler.fold_keys(jax.random.PRNGKey(5), jnp.asarray(seeds), jnp.asarray(gens))
     want = np.asarray(jsampler.sample(jkeys, jnp.asarray(logits), jnp.asarray(temp),
                                       jnp.asarray(top_k), jnp.asarray(top_p)))
-    keys = sampler.fold_keys(prng.PRNGKey(5), torch.from_numpy(seeds), torch.from_numpy(gens))
+    keys = sampler.fold_keys(prng.PRNGKey(5, "cpu"), torch.from_numpy(seeds),
+                             torch.from_numpy(gens))
     got = sampler.sample(keys, torch.from_numpy(logits), torch.from_numpy(temp),
                          torch.from_numpy(top_k), torch.from_numpy(top_p))
     assert got.dtype == torch.int32

@@ -124,9 +124,9 @@ def test_stripe_pool_streams_identical(setup, reference_streams):
 
 
 def test_sampled_requests_and_missing_gpu_raise(setup):
-    """Sampled requests are served now; what still raises: an unknown
-    acceptance rule, the model drafter (not ported, named in ROADMAP.md),
-    and a CUDA entry point without a card."""
+    """Sampled requests are served now; what raises: an unknown
+    acceptance rule, the model drafter on a config that declares no
+    draft_arch pairing, and a CUDA entry point without a card."""
     _, cfg, _, model, prompts = setup
     sched = serve.Scheduler(cfg, model, device="cpu", **SCHED)
     sched.submit(serve.Request(rid=0, prompt=prompts[0],
@@ -135,7 +135,7 @@ def test_sampled_requests_and_missing_gpu_raise(setup):
     with pytest.raises(ValueError, match="spec_accept"):
         sched.submit(serve.Request(rid=1, prompt=prompts[0],
                                    params=serve.SamplingParams(spec_accept="maybe")))
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 8"):
+    with pytest.raises(ValueError, match="no draft_arch pairing"):
         serve.Scheduler(cfg, model, device="cpu", spec=serve.SpecConfig(drafter="model"),
                         **SCHED)
     if not torch.cuda.is_available():

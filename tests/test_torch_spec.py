@@ -12,6 +12,8 @@ and unfused, are identical to the port's own non-speculative streams and
 to the reference's speculative ones (reduced qwen2-0.5b in f32, prefix
 sharing and async admission off).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -83,7 +85,7 @@ def test_acceptance_matches(mode, seed):
                             jnp.asarray(x["tok"]), base_key=jax.random.PRNGKey(3),
                             **{k: jnp.asarray(v) for k, v in kw.items()}, **flags)
     got = pspec.acceptance(torch.from_numpy(x["logits"]), torch.from_numpy(x["drafts"]),
-                           torch.from_numpy(x["tok"]), base_key=prng.PRNGKey(3),
+                           torch.from_numpy(x["tok"]), base_key=prng.PRNGKey(3, "cpu"),
                            **{k: torch.from_numpy(v) for k, v in kw.items()}, **flags)
     for name, w, g in zip(OUTS, want, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
@@ -103,7 +105,7 @@ def test_acceptance_matches(mode, seed):
 def test_position_keys_are_the_sequential_keys():
     seeds = torch.tensor([3, 2**31 + 4], dtype=torch.int64)
     gens = torch.tensor([0, 17], dtype=torch.int32)
-    keys = pspec.position_keys(prng.PRNGKey(9), seeds, gens, 4)
+    keys = pspec.position_keys(prng.PRNGKey(9, "cpu"), seeds, gens, 4)
     want = jspec.position_keys(jax.random.PRNGKey(9), jnp.asarray(seeds.numpy().astype(
         np.uint32)), jnp.asarray(gens.numpy()), 4)
     np.testing.assert_array_equal(keys.numpy(), np.asarray(want).astype(np.int64))
@@ -394,12 +396,12 @@ def test_spec_config_checks_and_stripe_pool(setup, reference_spec_streams):
     _, cfg, _, model = setup
     for bad, match in ((serve.SpecConfig(k=0), "k must be"),
                        (serve.SpecConfig(k=3, cycles=0), "cycles"),
-                       (serve.SpecConfig(drafter="model"), "Queue 1 item 8"),
+                       (serve.SpecConfig(drafter="model"), "no draft_arch pairing"),
                        (serve.SpecConfig(drafter=object()), "unknown drafter")):
         with pytest.raises(ValueError, match=match):
             serve.Scheduler(cfg, model, spec=bad, device="cpu", **SCHED)
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
-        pspec.ModelDrafter(cfg, model)
+    with pytest.raises(ValueError, match="not supported"):
+        pspec.ModelDrafter(dataclasses.replace(cfg, family="hybrid"), model)
     # the stripe pool takes the same verify/rollback path
     sched, reqs = _port_run(cfg, model, serve.SpecConfig(k=3), page=None)
     assert [r.tokens for r in reqs] == reference_spec_streams[0]
