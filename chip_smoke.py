@@ -79,7 +79,7 @@ Phases (each prints its own lines; any failure exits non-zero):
                twin (torch.matmul): logits must agree.
   8. dense   — RMSNorm and LayerNorm rows bitwise across calls of 1, 4,
                16 and 64 rows at every ported d_model; qwen2.5-14b at its
-               published widths and 48 layers, inited
+               published widths and 24 of its 48 layers, inited
                on the card (seeded) and packed with no permutation (peak
                memory, packed and dense bytes); K1 on its projections at B
                4, 16 ("rows", the verify's) and 512, per projection and
@@ -98,7 +98,23 @@ Phases (each prints its own lines; any failure exits non-zero):
                and bert-base: packed, K1 at B 4, 16 ("rows") and 512 and
                K2 at s 1/4/64/256 at their shapes, prefill + 4 decode
                steps against the plain versions.
-  9. train   — training runs no kernel of the three (masked-dense, dense
+  9. moe     — granite-3.0 MoE (32 layers, d_model 1536, 40 experts of
+               d_ff 512, top-8) at full width, inited on the card (seeded):
+               layer 0 (attention and all 40 experts of each stack)
+               gyro-pruned by `prune_model` (PRUNE_ITERS), then noperm
+               (retained gyro >= noperm - 5e-3, every permutation checked),
+               the other 31 layers packed noperm; K1 over its expert stacks
+               (one launch a stack) at C 8 and 128, bf16 and f32, held against
+               its plain version, each expert bitwise a launch of it alone,
+               timed beside the bound and torch.bmm; the router, softmax,
+               top-k weights and k-sum bitwise across row counts; a verify
+               against decode; prefill + 4 decode steps against the plain
+               versions and a float32 forward; 8 greedy requests served from
+               graphs (and the eager twin; 224 K1 and 32 K2 launches a decode
+               step asserted) and with SpecConfig(k=3) fused: capacity drops
+               counted, streams equal to plain or parted at a near tie
+               within the gap the verify's drops open from decode.
+ 10. train   — training runs no kernel of the three (masked-dense, dense
                matmuls and PyTorch ops, as the reference's training): the
                full-width qwen2-0.5b train step (bf16, AdamW, remat; batch
                8 x 512 of SyntheticLMData, 30 steps; the loss must fall by
@@ -980,7 +996,7 @@ def rewind(cfg, cache, pos0):
 
 
 @torch.no_grad()
-def spec_bits(cfg, model, cache, tok):
+def spec_bits(cfg, model, cache, tok, drops=None):
     """The speculative verify against sequential decode on the live pool:
     four greedy `decode_step`s from the pending token (each feeding back
     its argmax), rewound, then one `verify_step` over [pending + the three
@@ -991,7 +1007,10 @@ def spec_bits(cfg, model, cache, tok):
     scheduler's programs): the captured verify must be bitwise the
     captured decode steps, and a captured decode step is held against the
     eager one (max |dlogit|: what the graphed-vs-eager gate allows a
-    stream to part by)."""
+    stream to part by).  For an MoE model `drops` (a `DropCounter`, reset
+    by the caller) counts the verify's capacity drops, which part a verify
+    row from its decode step (the reference's semantics): with any, the
+    captured verify may differ from the captured decode steps."""
     from repro_torch.models import zoo
     from repro_torch.serve import sampler
 
@@ -1045,7 +1064,11 @@ def spec_bits(cfg, model, cache, tok):
           f"{out['graph_max_abs_dlogit']:.3e}; captured vs eager decode ({same} step(s)): "
           f"bit-equal {out['graph_vs_eager_bit_equal']}, max |dlogit| "
           f"{out['graph_vs_eager_max_abs_dlogit']:.3e}", flush=True)
-    if not out["graph_bit_equal"]:
+    if drops is not None:
+        out["verify_drops"] = drops.read()["verify"][0]
+        print(f"spec bits: (token, slot)s dropped for capacity in the verify forwards "
+              f"{out['verify_drops']}", flush=True)
+    if not out["graph_bit_equal"] and not out.get("verify_drops"):
         raise AssertionError("the captured verify is not bitwise the captured decode steps")
     return out
 
@@ -1425,7 +1448,7 @@ def serve_run(label, sched, make_requests, eager=True):
         st = sched.stats
         for r in reqs:
             if not (r.n_generated == r.params.max_new_tokens
-                    or (r.finish_reason == "eos" and r.tokens[-1] == EOS)):
+                    or (r.finish_reason == "eos" and r.tokens[-1] == sched.cfg.eos_id)):
                 raise AssertionError(f"{label} ({mode}) request {r.rid}: {r.n_generated} "
                                      f"tokens, finish {r.finish_reason}")
         line = dict(wall_s=wall, decode_tok_s=st.decode_tokens_per_second,
@@ -1642,10 +1665,12 @@ def parting_margin(cfg, model, sched, prompts, req, group, j, other=None):
 
 
 def spec_vs_plain(label, cfg, model, plain_sched, prompts, plain, spec, delta_fn,
-                  prefix=False):
+                  prefix=False, verify_parts=False):
     """Spec streams against the plain run's, request by request: equal, or
     parted only where the admission group differed (the one source of
-    other bits) at a near tie (`parting_margin`).  Both runs have the same
+    other bits; with `verify_parts`, also wherever a verify row parts from
+    its decode step: an MoE verify's capacity drops) at a near tie
+    (`parting_margin`).  Both runs have the same
     budgets, so streams of other lengths that agree as far as the shorter
     goes are a fault (one run missed a stop), unless `prefix`: the spec run
     was asked for more tokens, and its stream's first len(plain) tokens are
@@ -1667,8 +1692,8 @@ def spec_vs_plain(label, cfg, model, plain_sched, prompts, plain, spec, delta_fn
         partings.append(dict(rid=a.rid, index=j, margin=margin, threshold=delta,
                              group_plain=groups0[a.rid], group_spec=groups[a.rid],
                              replay_matches=drawn == a.tokens[j],
-                             near_tie=(groups[a.rid] != groups0[a.rid] and drawn == a.tokens[j]
-                                       and margin <= delta)))
+                             near_tie=((groups[a.rid] != groups0[a.rid] or verify_parts)
+                                       and drawn == a.tokens[j] and margin <= delta)))
     same = sum(a.tokens == (b.tokens[: len(a.tokens)] if prefix else b.tokens)
                for a, b in zip(plain, spec))
     print(f"{label}: streams equal to the plain run's {same}/{len(plain)}; {len(partings)} "
@@ -2366,12 +2391,15 @@ def agree_phase(cfg, model):
 
 # the served target: qwen2.5-14b at its published widths and depth
 BIG = "qwen2_5_14b"
+# the 14B's served depth (widths full): its 48 layers are cut to 24 to pay
+# for phase 9 (the MoE family) within chip_smoke's time limit
+BIG_LAYERS = 24
 # the other dense configs at full width: codeqwen1.5-7b and starcoder2-15b
 # cut to 2 layers (depth only: their weights would not fit beside the
 # rest), bert-base whole
 OTHER_DENSE = (("codeqwen1_5_7b", 2), ("starcoder2_15b", 2), ("bert_base", None))
 # the float32 forward of the same masked weights against the kernels: the
-# kernel path rounds every projection output to bf16 over 48 layers, the
+# kernel path rounds every projection output to bf16 over every layer, the
 # f32 one nothing, so the gap is one side's bf16 rounding compounded over
 # depth, relative to max|logit| (a CPU estimate at 48 layers and narrow
 # widths: 1.4e-2); the same limit as the kernels against the plain versions
@@ -2463,23 +2491,27 @@ def k2_shapes(label, cfg, ss, seed):
 
 def f32_block(blk):
     """A float32 twin of one block: every projection's masked weights
-    unpacked to dense f32, biases and norms in f32."""
+    unpacked to dense f32 (an MoE block's expert stacks too; its router is
+    f32 already), biases and norms in f32."""
     from repro_torch.core import packing
     from repro_torch.core.types import PackedHiNM
     from repro_torch.models import layers as L
     from repro_torch.models import module as M
-    from repro_torch.models import transformer
+    from repro_torch.models import moe, transformer
 
     def lin(m):
-        w = packing.unpack(m.w).T if isinstance(m.w, PackedHiNM) else m.w
+        w = packing.unpack_stored(m.w) if isinstance(m.w, PackedHiNM) else m.w
         return M.Linear(w.float().contiguous(), None if m.b is None else m.b.float())
 
     def norm(n):
         return M.Norm(n.scale.float(), None if n.bias is None else n.bias.float())
 
+    ffn = blk.moe if hasattr(blk, "moe") else blk.mlp
+    kids = {n: lin(m) for n, m in ffn.named_children()}
     return transformer.Block(
         norm(blk.ln1), L.Attention(*(lin(getattr(blk.attn, n)) for n in ("wq", "wk", "wv", "wo"))),
-        norm(blk.ln2), L.MLP(**{n: lin(m) for n, m in blk.mlp.named_children()}))
+        norm(blk.ln2), **(dict(moe=moe.MoE(**kids)) if hasattr(blk, "moe")
+                          else dict(mlp=L.MLP(**kids))))
 
 
 @torch.no_grad()
@@ -2787,7 +2819,7 @@ def dense_phase(cfg05, model05, served):
     gen = torch.Generator(device="cuda").manual_seed(4)
     t0 = time.perf_counter()
     rows = norm_rows()
-    cfg, model, info = build_packed(BIG)
+    cfg, model, info = build_packed(BIG, BIG_LAYERS)
     parts = {"build": time.perf_counter() - t0}
     t = time.perf_counter()
     out = {"big": {"build": info, "name": BIG}, "norm_rows": rows}
@@ -2843,7 +2875,459 @@ def dense_phase(cfg05, model05, served):
 
 
 # --------------------------------------------------------------------------
-# phase 9: training (masked-dense train step, loop, gradual pruning)
+# phase 9: the MoE family (granite-3.0 MoE at full width)
+# --------------------------------------------------------------------------
+
+MOE = "granite_moe_3b_a800m"
+# the layer-0 gyro's iterations: at PRUNE_ITERS (4/4) it took 51.8 s (its
+# 120 expert searches on the critical path of one item chain), past this
+# phase's share of the time limit
+MOE_PRUNE_ITERS = (2, 2)
+# row counts the routing's sums are held bitwise across
+ROUTE_ROWS = (1, 4, 16, 64)
+
+
+class DropCounter:
+    """Counts the (token, slot)s that MoE routing drops for capacity, on
+    the device with no sync, so also inside captured graphs (each replay
+    adds its drops): `moe.route` is wrapped while the block is open.
+    Counts by the call's shape: decode (the served 4 slots x 1 row), verify
+    (4 x (k+1)) and the rest (prefills, extensions).  Idle lanes' rows
+    are routed too and counted with the rest of their call."""
+
+    KINDS = {(len(PROFILE_LENS), 1): "decode", (len(PROFILE_LENS), SPEC_K + 1): "verify"}
+
+    def __init__(self):
+        self.drops = torch.zeros(3, dtype=torch.int64, device="cuda")
+        self.calls = torch.zeros(3, dtype=torch.int64, device="cuda")
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._orig = route = moe.route
+        names = list(self.KINDS.values()) + ["other"]
+
+        def counted(p, x, cfg, capacity_factor=moe.CAPACITY_FACTOR):
+            out = route(p, x, cfg, capacity_factor)
+            i = names.index(self.KINDS.get(tuple(x.shape[:2]), "other"))
+            self.drops[i] += (~out[3]).sum()
+            self.calls[i] += 1
+            return out
+
+        moe.route = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._orig
+
+    def reset(self):
+        self.drops.zero_()
+        self.calls.zero_()
+
+    def read(self) -> dict:
+        names = list(self.KINDS.values()) + ["other"]
+        return {n: (int(d), int(c)) for n, d, c in zip(names, self.drops.tolist(),
+                                                       self.calls.tolist())}
+
+
+def moe_build(gen):
+    """granite at full width, inited on the card (seed 6); layer 0 (its
+    attention and all 40 experts of each stack) gyro-pruned at
+    MOE_PRUNE_ITERS by `prune_model`, then noperm; the served model takes layer 0's gyro
+    weights and `zoo.pack_params` packs layers 1-31 (noperm)."""
+    import dataclasses
+
+    from repro_torch.configs.base import load_arch
+    from repro_torch.models import transformer, zoo
+    from repro_torch.serve import param_bytes
+    from repro_torch.train import pruning
+
+    cfg = load_arch(MOE)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(6), "cuda")
+    torch.cuda.synchronize()
+    info = dict(init_s=time.perf_counter() - t0, held_before=held,
+                init_peak=torch.cuda.max_memory_allocated())
+    cfg1 = dataclasses.replace(cfg, n_layers=1)
+    one = transformer.Transformer(model.embed, [model.blocks[0]], model.ln_f, model.lm_head)
+    out = {}
+    for method in ("gyro", "noperm"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, masks, packed, rep = pruning.prune_model(
+            one, cfg1, method=method, rng=np.random.default_rng(0),
+            ocp_iters=MOE_PRUNE_ITERS[0], icp_iters=MOE_PRUNE_ITERS[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        kinds = "  ".join(f"{path} {sec:.1f} s" for path, sec in rep.item_seconds.items())
+        print(f"granite layer 0 prune_model(method={method!r}, ocp_iters={MOE_PRUNE_ITERS[0]}, "
+              f"icp_iters={MOE_PRUNE_ITERS[1]}): {wall:.1f} s (search "
+              f"{rep.phase_seconds['search']:.1f} s, realize "
+              f"{rep.phase_seconds['realize']:.1f} s); {rep.searches_run} searches; mean "
+              f"retained {rep.mean_retained:.6f}; host seconds per item: {kinds}", flush=True)
+        out[method] = dict(packed=packed, report=rep, wall_s=wall)
+    gyro, noperm = out["gyro"]["report"], out["noperm"]["report"]
+    n = check_perms(cfg1, gyro)
+    print(f"granite layer 0: gyro {gyro.mean_retained:.6f} vs noperm {noperm.mean_retained:.6f} "
+          f"mean retained (gain {gyro.mean_retained - noperm.mean_retained:+.6f}); {n} searched "
+          f"perms ({cfg.n_experts} per expert stack) pass their constraint checks", flush=True)
+    if not gyro.mean_retained >= noperm.mean_retained - GYRO_MARGIN:
+        raise AssertionError(f"granite gyro retained {gyro.mean_retained} < noperm "
+                             f"{noperm.mean_retained} - {GYRO_MARGIN}")
+    model.blocks[0] = out["gyro"]["packed"].blocks[0]
+    del one, out["gyro"]["packed"], out["noperm"]["packed"]
+    free_card()
+    t = time.perf_counter()
+    zoo.pack_params(cfg, model)
+    torch.cuda.synchronize()
+    packed_b, dense_b = param_bytes(model)
+    info.update(pack_s=time.perf_counter() - t, peak=torch.cuda.max_memory_allocated(),
+                after=torch.cuda.memory_allocated(), packed_bytes=packed_b, dense_bytes=dense_b,
+                prune={m: dict(wall_s=v["wall_s"], mean_retained=v["report"].mean_retained,
+                               item_seconds=v["report"].item_seconds)
+                       for m, v in out.items()})
+    print(f"{MOE}: {cfg.n_layers} layers d_model {cfg.d_model} heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} hd {cfg.head_dim}, {cfg.n_experts} experts top-{cfg.top_k} d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab} -> {cfg.vocab_padded}, eos_id {cfg.eos_id}; init "
+          f"{info['init_s']:.1f} s, pack of layers 1-{cfg.n_layers - 1} "
+          f"({3 * cfg.n_experts * (cfg.n_layers - 1)} expert matrices and "
+          f"{4 * (cfg.n_layers - 1)} attention ones) {info['pack_s']:.1f} s; weights "
+          f"{gb(packed_b)} packed vs {gb(dense_b)} dense; card memory {gb(held)} held before, "
+          f"peak {gb(info['init_peak'])} after init and {gb(info['peak'])} through prune and "
+          f"pack, {gb(info['after'])} after", flush=True)
+    return cfg, model, info
+
+
+def k1_stack_case(label, p, c, gen, dtype):
+    """K1 over an expert stack `p` (fields (E, ...)) at C rows an expert:
+    one launch held against its plain version (expert by expert), each
+    expert's slice bitwise a launch of that expert alone, and kernel, plain
+    version and `torch.bmm` over the masked-dense stack timed beside the
+    bound."""
+    from repro_torch.core import packing
+    from repro_torch.core.types import PackedHiNM
+    from repro_torch.kernels import hinm_spmm as hs
+
+    if p.vals.dtype != dtype:
+        p = PackedHiNM(p.vals.to(dtype), p.vec_idx, p.nm_idx, p.n_out, p.n_in, p.config)
+    e, n_out, n_in = p.vals.shape[0], p.n_out, p.n_in
+    x = torch.randn((e, c, n_in), generator=gen, device="cuda").to(dtype)
+    n0 = hs.hinm_spmm.launches
+    y = hs.hinm_spmm(x, p)
+    if hs.hinm_spmm.launches - n0 != 1:
+        raise AssertionError(f"K1 {label}: the stack took {hs.hinm_spmm.launches - n0} launches")
+    y_ref = hs.hinm_spmm_ref(x, p)
+    torch.cuda.synchronize()
+    rel = float((y.float() - y_ref.float()).abs().max()) / max(
+        float(y_ref.float().abs().max()), 1e-30)
+    alone = all(torch.equal(hs.hinm_spmm(x[i], p.expert(i)), y[i]) for i in range(e))
+    w = packing.unpack_stored(p)                            # (E, n_in, n_out) masked-dense
+    ms = time_ms(lambda: hs.hinm_spmm(x, p))
+    plain_ms = time_ms(lambda: hs.hinm_spmm_ref(x, p), iters=3)
+    lib_ms = time_ms(lambda: torch.bmm(x, w))
+    isz = x.element_size()
+    b_ms, b_by = bound(x.numel() * isz + p.packed_bytes() + e * c * n_out * isz,
+                       2.0 * p.vals.numel() * c, dtype)
+    tol = K1_TOL[dtype]
+    variant = hs.variant(c, p, dtype)
+    line = dict(case=label, E=e, shape=[n_out, n_in], C=c, dtype=str(dtype).split(".")[-1],
+                variant=variant, max_abs_err=float((y.float() - y_ref.float()).abs().max()),
+                max_rel_err=rel, tol=tol, experts_bitwise_alone=alone, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"K1 experts {label:6s} E={e} {n_out}x{n_in} C={c:<4d} {line['dtype']:8s} "
+          f"{variant:4s} rel_err={rel:.2e} (tol {tol:.0e}) each expert bitwise alone {alone}; "
+          f"kernel {ms*1e3:8.1f} us  plain {plain_ms*1e3:9.1f} us  bmm {lib_ms*1e3:8.1f} us  "
+          f"bound {b_ms*1e3:7.1f} us ({b_by})", flush=True)
+    if not rel <= tol:
+        raise AssertionError(f"K1 experts {label} C={c}: relative error {rel} > {tol}")
+    if not alone:
+        raise AssertionError(f"K1 experts {label} C={c}: an expert's rows differ from a launch "
+                             "of that expert alone")
+    return line
+
+
+def k1_experts(cfg, model, gen):
+    """K1 over layer 0's gyro-pruned expert stacks (permuted vec_idx) at the
+    served capacities: C 8 (decode and the verify, "rows") and 128 (a
+    prefill at 512 rows, "mma" in bf16), bf16 and f32; then the layer's
+    three stacks (wg, wu, wd) summed."""
+    from repro_torch.models import moe
+
+    blk = model.blocks[0].moe
+    for name in ("wg", "wd"):
+        vi = getattr(blk, name).w.vec_idx
+        if bool((vi[..., 1:] > vi[..., :-1]).all()):
+            raise AssertionError(f"granite {name}: vec_idx is ascending, ICP permuted nothing")
+    caps = (moe.capacity(len(PROFILE_LENS), cfg), moe.capacity(512, cfg))
+    cases = [k1_stack_case(name, getattr(blk, name).w, c, gen, dtype)
+             for dtype in (torch.bfloat16, torch.float32) for c in caps
+             for name in ("wg", "wd")]
+    layer = {}
+    for c in caps:
+        by = {cs["case"]: cs for cs in cases if cs["C"] == c and cs["dtype"] == "bfloat16"}
+        layer[f"C{c}"] = {k: 2 * by["wg"][k] + by["wd"][k]
+                          for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"K1 experts, one layer's 3 stacks (wg, wu, wd) at C {c}, bf16: kernel "
+              f"{layer[f'C{c}']['ms']*1e3:.1f} us, plain {layer[f'C{c}']['plain_ms']*1e3:.1f} "
+              f"us, bmm {layer[f'C{c}']['library_ms']*1e3:.1f} us, bound "
+              f"{layer[f'C{c}']['bound_ms']*1e3:.1f} us", flush=True)
+    return cases, layer
+
+
+@torch.no_grad()
+def route_rows(cfg, model) -> dict:
+    """A row's routing bitwise whatever call holds it: layer 0's router
+    probabilities, the top-k weights and the k-sum (`moe._fixed_sum` over
+    the k gathered rows) over 64 random rows against the same rows in
+    calls of 1, 4 and 16 (from row 0 and from row n), and the whole MoE
+    block's rows at 1 and 4 against 16 (capacity 8 at all three: "rows").
+    PyTorch's own forms (an f32 matmul router, softmax, sum) printed beside
+    them."""
+    from repro_torch.models import moe
+
+    p = model.blocks[0].moe
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((64, 1, cfg.d_model), generator=gen, device="cuda").to(cfg.dtype)
+    g = torch.randn((64, cfg.top_k, cfg.d_model), generator=gen, device="cuda").to(cfg.dtype)
+    w = p.router.w.float()
+
+    def torch_forms(rows):
+        lg = rows[:, 0].float() @ w
+        return lg, torch.softmax(lg, -1)
+
+    fns = {"router probs": lambda r: moe.router_probs(p, r[:, 0]),
+           "top-k weights": lambda r: moe.route(p, r, cfg)[0],
+           "k-sum": None}
+    full = {k: f(x) for k, f in fns.items() if f}
+    full["k-sum"] = moe._fixed_sum(g.float(), dim=1)
+    tfull = torch_forms(x)
+    out, plain = {k: True for k in fns}, {"matmul router": True, "softmax": True,
+                                          "sum over k": True}
+    tsum = g.float().sum(1)
+    for n in ROUTE_ROWS[:-1]:
+        for at in (0, n):
+            sl = slice(at, at + n)
+            for k, f in fns.items():
+                got = moe._fixed_sum(g[sl].float(), dim=1) if f is None else f(x[sl])
+                out[k] = out[k] and torch.equal(got, full[k][sl])
+            lg, sm = torch_forms(x[sl])
+            plain["matmul router"] &= torch.equal(lg, tfull[0][sl])
+            plain["softmax"] &= torch.equal(sm, tfull[1][sl])
+            plain["sum over k"] &= torch.equal(g[sl].float().sum(1), tsum[sl])
+    y16 = moe.moe_apply(p, x[:16], cfg)
+    keep16 = moe.route(p, x[:16], cfg)[3]
+    drops16 = int((~keep16).sum())
+    out["MoE block rows"] = all(torch.equal(moe.moe_apply(p, x[at: at + n], cfg), y16[at: at + n])
+                                for n in (1, 4) for at in (0, n))
+    print(f"routing rows bitwise across calls of {', '.join(map(str, ROUTE_ROWS))} rows: "
+          + ", ".join(f"{k} {v}" for k, v in out.items())
+          + f" (the 16-row call dropped {drops16}); PyTorch's own forms: "
+          + ", ".join(f"{k} {v}" for k, v in plain.items()), flush=True)
+    if not all(v for k, v in out.items() if k != "MoE block rows") or (
+            not out["MoE block rows"] and drops16 == 0):
+        raise AssertionError("an MoE row depends on the call that holds it")
+    return dict(fixed_order=out, torch_forms=plain, drops_16=drops16)
+
+
+class RouteTape:
+    """Records every `moe.route` decision (experts, queue positions, keeps,
+    capacity) of a run, and replays them into another run of the same call
+    structure: the replayed run takes the recorded decisions and weights
+    the recorded experts by its own router probabilities (renormalised).
+    A float32 forward routed anew parts from the bf16 one wherever a top-k
+    choice or a capacity cut sits within bf16 noise, a discrete change no
+    tolerance on logits describes; pinned, the comparison measures the
+    arithmetic."""
+
+    def __init__(self):
+        self.tape, self.mode = [], None
+
+    @contextlib.contextmanager
+    def run(self, mode):
+        from repro_torch.models import moe
+
+        route = moe.route
+        i = iter(list(self.tape))
+
+        def taped(p, x, cfg, capacity_factor=moe.CAPACITY_FACTOR):
+            if mode == "record":
+                out = route(p, x, cfg, capacity_factor)
+                self.tape.append(out[1:])
+                return out
+            topi, pos, keep, cap = next(i)
+            probs = moe.router_probs(p, x.reshape(-1, x.shape[-1]))
+            topv = probs.gather(1, topi)
+            return (topv / torch.clamp(moe._fixed_sum(topv), min=1e-9)[:, None], topi, pos,
+                    keep, cap)
+
+        moe.route = taped
+        try:
+            yield
+        finally:
+            moe.route = route
+        if mode == "replay" and next(i, None) is not None:
+            raise AssertionError("the replayed run routed fewer times than the recorded one")
+
+
+@torch.no_grad()
+def moe_agree(cfg, model, n_prompt=40, n_dec=4):
+    """`dense_agree`'s inputs, teacher-forced prefill + `n_dec` paged decode
+    steps through the kernels, against the plain versions, and against a
+    float32 twin of the same masked weights (the whole model in f32, TF32
+    off: 13.5 GB) run through the same calls, its routing pinned to the
+    kernel run's (`RouteTape`); the f32 twin routed anew is printed
+    beside it."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import module as M
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    b = 2
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, n_prompt)).astype(np.int32)).cuda()
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab, (n_dec, b, 1)).astype(np.int32)).cuda()
+    tape = RouteTape()
+    with tape.run("record"):
+        a = teacher_forced_logits(cfg, model, prompt, forced, "auto")
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("granite: non-finite logits on the kernel path")
+    out = {"plain": compare_logits(f"granite: kernels vs plain versions, prefill + {n_dec} "
+                                   "paged decode steps", a,
+                                   teacher_forced_logits(cfg, model, prompt, forced, "torch"))}
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    f32 = transformer.Transformer(
+        M.Embed(model.embed.table.float()), [f32_block(blk) for blk in model.blocks],
+        M.Norm(model.ln_f.scale.float()), M.Linear(model.lm_head.w.float()))
+    with tape.run("replay"):
+        out["f32"] = compare_logits(
+            "granite: kernels vs a float32 twin of the masked weights (TF32 off), routing "
+            "pinned to the kernel run's", a,
+            teacher_forced_logits(cfg32, f32, prompt, forced, "torch"), tol=F32_TOL)
+    free32 = teacher_forced_logits(cfg32, f32, prompt, forced, "torch")
+    out["f32_routed_anew"] = float((a - free32).abs().max()) / float(free32.abs().max())
+    print(f"granite: the float32 twin routed anew (not gated): max |dlogit| / max|logit| = "
+          f"{out['f32_routed_anew']:.2e}; greedy-token match "
+          f"{float((a.argmax(-1) == free32.argmax(-1)).float().mean()):.3f}", flush=True)
+    del f32
+    free_card()
+    return out
+
+
+def moe_serve(cfg, model, prompts, bits, drops):
+    """granite served by `Scheduler(max_slots=4, max_seq=256, page=16,
+    decode_chunk=8)` from graphs: 8 greedy requests (graphed and the eager
+    twin; 7L K1 and L K2 launches a decode step asserted), then
+    SpecConfig(k=3) fused with the n-gram drafter, graphed (launches per
+    cycle asserted).  Spec streams against plain: equal, or parted where the
+    plain run's draw replays within a top-2 margin of the verify's gap from
+    decode (`spec_bits`), when that run's verify forwards dropped (token,
+    slot)s for capacity (the reference's semantics: a verify row then
+    parts from its decode step) or its admission group differed."""
+    from repro_torch.models import moe
+    from repro_torch.serve import Request, SamplingParams, Scheduler, SpecConfig
+
+    def requests():
+        return [Request(rid=i, prompt=p, params=SamplingParams(max_new_tokens=32), arrival=i)
+                for i, p in enumerate(prompts)]
+
+    geom = dict(max_slots=4, max_seq=256, page=16, decode_chunk=8)
+    plain = Scheduler(cfg, model, **geom)
+    print(f"granite scheduler: KV pool {gb(plain.kv.pool_bytes())} ({plain.kv.n_pages} pages)")
+    out, runs = {}, {}
+    for label, sched in (("plain", plain),
+                         ("spec fused", Scheduler(cfg, model, spec=SpecConfig(k=SPEC_K), **geom))):
+        drops.reset()
+        runs[label] = r = serve_run(f"granite {label}", sched, requests,
+                                    eager=sched is plain)
+        torch.cuda.synchronize()
+        d = drops.read()
+        reqs, ln = r["graphed"]
+        groups = len(set(admission_groups(reqs).values()))
+        # a spec run's forwards are its verifies (the n-gram drafter runs none)
+        fwd = ln["verify_steps"] or ln["decode_steps"]
+        want = ((fwd + groups) * 7 * cfg.n_layers, fwd * cfg.n_layers)
+        ln["eos_stops"] = sum(x.finish_reason == "eos" for x in reqs)
+        ln["drops"] = d
+        print(f"granite {label}: launches hinm_spmm {ln['hinm_spmm']}, paged_decode_attn "
+              f"{ln['paged_decode_attn']} (want {want[0]}, {want[1]}: {7 * cfg.n_layers} and "
+              f"{cfg.n_layers} a decode step or verify, {7 * cfg.n_layers} an admission group "
+              f"x {groups}); {ln['eos_stops']} request(s) stopped on eos_id {cfg.eos_id} "
+              f"(random weights: token {cfg.eos_id} is as likely as any); capacity drops over "
+              f"the warm-up, graphed (and eager) runs by call kind, (drops, calls): {d}",
+              flush=True)
+        if (ln["hinm_spmm"], ln["paged_decode_attn"]) != want:
+            raise AssertionError(f"granite {label}: launches differ from the programs' count")
+        if sched is plain:
+            out[label] = twins_gate(f"granite {label}", cfg, model, plain, prompts, r, bits)
+            before_after(f"granite {label}", r)
+        else:
+            del sched
+    d = runs["spec fused"]["graphed"][1]["drops"]["verify"]
+    verify_drops = d[0] / max(d[1], 1) * cfg.n_layers
+    out["drops_per_verify"] = verify_drops
+    print(f"granite spec fused: {verify_drops:.2f} (token, slot)s dropped per verify forward, "
+          f"{d[0] / max(d[1], 1):.2f} a layer ({cfg.n_experts} experts, capacity "
+          f"{moe.capacity(len(PROFILE_LENS) * (SPEC_K + 1), cfg)} at {len(PROFILE_LENS) * (SPEC_K + 1)} rows)", flush=True)
+    # a verify with drops parts from its decode steps by up to spec_bits'
+    # max |dlogit|: a parting within it, where the plain run's draw replays,
+    # is a drop's (or a near tie's), not a fault
+    out["streams"] = spec_vs_plain("granite spec fused", cfg, model, plain, prompts,
+                                   runs["plain"]["graphed"][0], runs["spec fused"]["graphed"][0],
+                                   lambda: bits["max_abs_dlogit"], verify_parts=d[0] > 0)
+    out["runs"] = {k: {m: ln for m, (_, ln) in v.items()} for k, v in runs.items()}
+    del plain
+    return out
+
+
+def moe_phase():
+    """Phase 9: granite-3.0 MoE at full width on the card (`moe_build`),
+    K1 over its expert stacks, routing rows, a verify against decode, its
+    agreement with the plain versions and a float32 forward, and its
+    serving (`moe_serve`)."""
+    from repro_torch.serve.kv import SlotKVCache
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    t0 = time.perf_counter()
+    cfg, model, info = moe_build(gen)
+    parts = {"build": time.perf_counter() - t0}
+    t = time.perf_counter()
+    out = {"build": info, "name": MOE}
+    out["k1"], out["k1_layer"] = k1_experts(cfg, model, gen)
+    out["route_rows"] = route_rows(cfg, model)
+    parts["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with DropCounter() as drops:
+        kv = SlotKVCache(cfg, len(PROFILE_LENS), 256, page=16, n_pages=None, device="cuda")
+        slots, tok = live_pool(cfg, model, kv, SPEC_K + 2)
+        drops.reset()
+        bits = out["spec_bits"] = spec_bits(cfg, model, kv.cache, tok, drops=drops)
+        for slot in slots:
+            kv.release(slot)
+        del kv
+        out["agree"] = moe_agree(cfg, model)
+        parts["agree"] = time.perf_counter() - t
+        t = time.perf_counter()
+        prompts = [np.random.default_rng(40 + i).integers(1, cfg.vocab, n).astype(np.int32)
+                   for i, n in enumerate([16, 24, 40, 64, 96, 128, 33, 80])]
+        out["serve"] = moe_serve(cfg, model, prompts, bits, drops)
+    parts["serve"] = time.perf_counter() - t
+    del model
+    free_card()
+    out["parts_s"] = parts
+    print("moe phase parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()),
+          flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 10: training (masked-dense train step, loop, gradual pruning)
 # --------------------------------------------------------------------------
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 30
@@ -3322,7 +3806,10 @@ def main() -> int:
     k1 += big["k1"] + [c for o in dense["others"].values() for c in o["k1"]]
     k2 += big["k2"] + [c for o in dense["others"].values() for c in o["k2"]]
 
-    phase("9. train")
+    phase("9. moe")
+    moe = moe_phase()
+
+    phase("10. train")
     trained = train_phase()
     phase()
 
@@ -3337,7 +3824,8 @@ def main() -> int:
     paths = ({"greedy": served} | {f"mixed {k}": v["graphed"] for k, v in mixed.items()}
              | {f"share {k}": v["graphed"] for k, v in shared.items()}
              | {f"14B {k}": v["graphed"] for k, v in big["serve"]["runs"].items()}
-             | {"0.5B self-draft": dense["self_draft"]["line"]})
+             | {"0.5B self-draft": dense["self_draft"]["line"]}
+             | {f"granite {k}": v["graphed"] for k, v in moe["serve"]["runs"].items()})
     by_path = {name: {p: paths[p][name] for p in paths}
                for name in ("hinm_spmm", "paged_decode_attn")}
     for name, counts in by_path.items():
@@ -3351,13 +3839,18 @@ def main() -> int:
              crossover={"rows_max_b": K1_CROSSOVER, "layer_ms_by_B": crossover},
              launches_by_path=by_path["hinm_spmm"],
              launches_per_14b_cycle=big["serve"]["runs"]["fused"]["graphed"]["per_cycle_k1"],
+             experts={MOE: dict(layer=moe["k1_layer"], cases=moe["k1"],
+                                timed="one launch over a stack of 40 experts: wg/wu 512x1536, "
+                                      "wd 1536x512, C rows an expert; layer = wg + wu + wd")},
              dense_family={BIG: big["k1_layer"]} | {
                  name: {"layers": o["build"]["layers"]} for name, o in dense["others"].items()},
              prefill=k1_prefill_layer(k1, served["prefill_k1_per_admission"]),
              extension=layer.pop("extension"),
              **{**layer,
-                "max_abs_err": max([layer["max_abs_err"]] + [c["max_abs_err"] for c in k1]),
-                "max_rel_err": max([layer["max_rel_err"]] + [c["max_rel_err"] for c in k1])},
+                "max_abs_err": max([layer["max_abs_err"]]
+                                   + [c["max_abs_err"] for c in k1 + moe["k1"]]),
+                "max_rel_err": max([layer["max_rel_err"]]
+                                   + [c["max_rel_err"] for c in k1 + moe["k1"]])},
              cases=k1),
         dict(name="paged_decode_attn", route="cuda",
              source="src/repro_torch/csrc/paged_attn.cu",
@@ -3458,6 +3951,22 @@ def main() -> int:
           + f"; self-draft acceptance {sd['acceptance']:.4f}, {sd['tokens_per_verify']:.3f} "
           f"tokens per verify; others agree " + ", ".join(
               f"{n} {o['agree']['plain'][0]:.2e}" for n, o in dense["others"].items()))
+    mb, ms_ = moe["build"], moe["serve"]
+    print(f"moe: granite {gb(mb['packed_bytes'])} packed vs {gb(mb['dense_bytes'])} dense, peak "
+          f"{gb(mb['peak'])}; layer-0 gyro {mb['prune']['gyro']['wall_s']:.1f} s, retained "
+          f"{mb['prune']['gyro']['mean_retained']:.6f} vs noperm "
+          f"{mb['prune']['noperm']['mean_retained']:.6f}; K1 over experts, a layer's 3 stacks "
+          + ", ".join(f"{c} {v['ms'] * 1e3:.1f} us (bmm {v['library_ms'] * 1e3:.1f}, bound "
+                      f"{v['bound_ms'] * 1e3:.1f})" for c, v in moe["k1_layer"].items())
+          + f"; agree plain {moe['agree']['plain'][0]:.2e}, f32 {moe['agree']['f32'][0]:.2e}; "
+          f"verify bitwise decode {moe['spec_bits']['bit_equal']} (verify drops "
+          f"{moe['spec_bits'].get('verify_drops')}); "
+          + "; ".join(f"{k} {v['graphed']['decode_tok_s']:.1f} decode tok/s, p50 step "
+                      f"{v['graphed']['p50_step_ms']:.2f} ms, p50 TTFT "
+                      f"{v['graphed']['p50_ttft_ms']:.1f} ms, device "
+                      f"{v['graphed']['device_step_ms']:.3f} ms a step, idle "
+                      f"{v['graphed']['idle_share']:.1%}" for k, v in ms_["runs"].items())
+          + f"; {ms_['drops_per_verify']:.2f} drops per verify forward")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in SECONDS.items()))
     print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     print(smi)

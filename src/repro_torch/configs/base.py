@@ -27,13 +27,14 @@ ARCH_IDS = (
     "granite_moe_3b_a800m",
 )
 PAPER_IDS = ("bert_base", "deit_base")
-PORTED_IDS = ("qwen2_0_5b", "qwen2_5_14b", "codeqwen1_5_7b", "starcoder2_15b", "bert_base")
+PORTED_IDS = ("qwen2_0_5b", "qwen2_5_14b", "codeqwen1_5_7b", "starcoder2_15b", "bert_base",
+              "granite_moe_3b_a800m", "grok_1_314b")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense (the only family ported so far)
+    family: str                  # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int

@@ -19,6 +19,7 @@ from repro_torch.core.types import HiNMConfig, PackedHiNM
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import module as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer
 
 
@@ -64,11 +65,15 @@ def params_from_numpy(cfg, tree: dict, device="cuda") -> transformer.Transformer
     blk = tree["blocks"]
     blocks = []
     for i in range(cfg.n_layers):
-        a, m = blk["attn"], blk["mlp"]
+        a = blk["attn"]
         attn = L.Attention(*(_linear(a[n], i, device) for n in ("wq", "wk", "wv", "wo")))
-        mlp = L.MLP(**{n: _linear(m[n], i, device) for n in m})
+        if "moe" in blk:    # the router and the expert stacks, (L, E, ...) leaves
+            ffn = dict(moe=MOE.MoE(**{n: _linear(blk["moe"][n], i, device)
+                                      for n in ("router", "wg", "wu", "wd")}))
+        else:
+            ffn = dict(mlp=L.MLP(**{n: _linear(m, i, device) for n, m in blk["mlp"].items()}))
         blocks.append(transformer.Block(_norm(blk["ln1"], i, device), attn,
-                                        _norm(blk["ln2"], i, device), mlp))
+                                        _norm(blk["ln2"], i, device), **ffn))
     head = tree["lm_head"]
     return transformer.Transformer(
         M.Embed(to_tensor(tree["embed"]["table"], device)),
@@ -86,6 +91,6 @@ def masks_from_numpy(cfg, tree: dict, device="cuda") -> list[dict[str, torch.Ten
     device = resolve_device(device)
     blk = tree["blocks"]
     return [{f"{grp}/{name}": to_tensor(node["w"][i], device)
-             for grp in ("attn", "mlp") for name, node in blk[grp].items()
+             for grp in ("attn", "mlp", "moe") if grp in blk for name, node in blk[grp].items()
              if node.get("w") is not None}
             for i in range(cfg.n_layers)]

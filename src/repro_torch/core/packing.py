@@ -70,6 +70,37 @@ def unpack(p: PackedHiNM) -> torch.Tensor:
     return full.reshape(p.n_out, p.n_in)
 
 
+def stack(packs: list[PackedHiNM]) -> PackedHiNM:
+    """One expert stack from per-expert packs of one shape: every field
+    gains a leading E."""
+    p0 = packs[0]
+    return PackedHiNM(
+        vals=torch.stack([p.vals for p in packs]),
+        vec_idx=torch.stack([p.vec_idx for p in packs]),
+        nm_idx=torch.stack([p.nm_idx for p in packs]),
+        n_out=p0.n_out,
+        n_in=p0.n_in,
+        config=p0.config,
+    )
+
+
+def pack_stored(w: torch.Tensor, cfg: HiNMConfig) -> PackedHiNM:
+    """Pack a stored-orientation (n_in, n_out) weight with no permutation;
+    an expert stack (E, n_in, n_out) expert by expert, as the reference
+    vmaps `pack` over it."""
+    if w.dim() == 3:
+        return stack([pack(we.T, cfg) for we in w])
+    return pack(w.T, cfg)
+
+
+def unpack_stored(p: PackedHiNM) -> torch.Tensor:
+    """The masked-dense stored-orientation weight of a pack (an expert
+    stack's (E, n_in, n_out))."""
+    if p.vals.dim() == 4:
+        return torch.stack([unpack(p.expert(e)).T for e in range(p.vals.shape[0])])
+    return unpack(p).T.contiguous()
+
+
 def pack_mask(p: PackedHiNM) -> torch.Tensor:
     """Boolean keep-mask implied by a packed tensor (for validation)."""
     ones = PackedHiNM(

@@ -64,7 +64,10 @@ class PackedHiNM:
     """A weight matrix in packed HiNM format (see module docstring).
 
     A plain dataclass of torch tensors: the layer loop of the port walks
-    per-layer modules, so nothing needs the JAX pytree registration."""
+    per-layer modules, so nothing needs the JAX pytree registration.  The
+    fields may carry leading dims (an expert stack's ``(E, T, V, Kn)``
+    vals); `n_out`/`n_in` are one matrix's, `t`/`k`/`kn` one matrix's
+    tiles, and the byte counts cover the whole stack."""
 
     vals: torch.Tensor      # (T, V, Kn) float
     vec_idx: torch.Tensor   # (T, K) int32
@@ -83,7 +86,12 @@ class PackedHiNM:
 
     @property
     def t(self) -> int:
-        return self.vals.shape[0]
+        return self.vals.shape[-3]
+
+    def expert(self, i: int) -> "PackedHiNM":
+        """Matrix `i` of a stack (views of its fields)."""
+        return PackedHiNM(self.vals[i], self.vec_idx[i], self.nm_idx[i], self.n_out,
+                          self.n_in, self.config)
 
     def packed_bytes(self) -> int:
         """Device-memory footprint of the packed representation."""

@@ -50,6 +50,15 @@
 //   blockIdx.z into f32 partials that sum_splits adds up.  Packed rows that
 //   are not 16-byte aligned are copied into the ring with scalar loads.
 //
+// Both run over a stack of E experts in one launch (the TPU kernel vmapped
+// over an expert axis, src/repro/models/moe.py:_expert_linear): expert e
+// reads x + e*B*n_in, its own vals/nm_idx (+ e*T*V*Kn) and vec_idx
+// (+ e*T*K), and writes y + e*B*n_out, B being the rows of one expert.  The
+// expert is folded into blockIdx.y beside the batch blocks, and every
+// block's work is the single-matrix launch's: a stack's expert gives the
+// bits a launch of that expert alone gives.  "mma" transposes and, on a
+// split K, sums each expert's rows in its own share of the scratch.
+//
 // Every launch is a programmatic dependent launch (launch_pdl): a grid is
 // scheduled while the kernel before it finishes, which hides most of the
 // launch latency between the back-to-back projections of a layer and
@@ -184,8 +193,15 @@ __global__ void __launch_bounds__(ROW_WARPS * 32, PRE == 1 && BB <= 4 ? 5 : 2)
 spmm_rows(const T* __restrict__ x, const T* __restrict__ vals,
           const int8_t* __restrict__ nm_idx, const int* __restrict__ vec_idx,
           T* __restrict__ y, int B, int n_in, int n_out, int V, int K, int Kn,
-          int N, int M, int xf_bytes) {
+          int N, int M, int xf_bytes, int nby) {
   using C = Chunk<T>;
+  // blockIdx.y = expert * nby + batch block: step to the expert's operands
+  const int e = blockIdx.y / nby, by = blockIdx.y - e * nby;
+  x += (size_t)e * B * n_in;
+  vals += (size_t)e * n_out * Kn;
+  nm_idx += (size_t)e * n_out * Kn;
+  vec_idx += (size_t)e * (n_out / V) * K;
+  y += (size_t)e * B * n_out;
   using XP = XPack<T, BB>;
   using Idx = typename C::Idx;
   constexpr int CW = C::CW;
@@ -206,7 +222,7 @@ spmm_rows(const T* __restrict__ x, const T* __restrict__ vals,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x * ROW_WARPS + warp;            // output row, packed order
   const int t = (blockIdx.x * ROW_WARPS) / V;
-  const int b0 = blockIdx.y * BB;
+  const int b0 = by * BB;
   const int nb = min(BB, B - b0);
   const T* vr = vals + (size_t)r * Kn;
   const int8_t* sr = nm_idx + (size_t)r * Kn;
@@ -299,9 +315,11 @@ spmm_rows(const T* __restrict__ x, const T* __restrict__ vals,
 template <typename T, int BB, int PRE, bool XF>
 cudaError_t launch_rows(const void* x, const void* vals, const void* nm_idx,
                         const void* vec_idx, void* y, int B, int n_in, int T_, int V,
-                        int K, int Kn, int N, int M, int xf_bytes, cudaStream_t s) {
+                        int K, int Kn, int N, int M, int xf_bytes, int E, cudaStream_t s) {
   static int smem_set = 0;
   const int smem = xf_bytes + rows_smem<T>(K, BB);
+  const int nby = (B + BB - 1) / BB;
+  if ((long long)E * nby > 65535) return cudaErrorInvalidValue;
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(spmm_rows<T, BB, PRE, XF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -309,11 +327,11 @@ cudaError_t launch_rows(const void* x, const void* vals, const void* nm_idx,
     smem_set = smem;
   }
   const int n_out = T_ * V;
-  dim3 grid(n_out / ROW_WARPS, (B + BB - 1) / BB);
+  dim3 grid(n_out / ROW_WARPS, E * nby);
   return launch_pdl(spmm_rows<T, BB, PRE, XF>, grid, dim3(ROW_WARPS * 32), smem, s,
                     static_cast<const T*>(x), static_cast<const T*>(vals),
                     static_cast<const int8_t*>(nm_idx), static_cast<const int*>(vec_idx),
-                    static_cast<T*>(y), B, n_in, n_out, V, K, Kn, N, M, xf_bytes);
+                    static_cast<T*>(y), B, n_in, n_out, V, K, Kn, N, M, xf_bytes, nby);
 }
 
 // rows of at most one 16-byte chunk a lane preload one (few registers, so
@@ -321,39 +339,39 @@ cudaError_t launch_rows(const void* x, const void* vals, const void* nm_idx,
 template <typename T, int BB, bool XF>
 cudaError_t launch_rows_shape(const void* x, const void* vals, const void* nm_idx,
                               const void* vec_idx, void* y, int B, int n_in, int T_, int V,
-                              int K, int Kn, int N, int M, int xf, cudaStream_t s) {
+                              int K, int Kn, int N, int M, int xf, int E, cudaStream_t s) {
   if (Kn <= 32 * Chunk<T>::CW)
     return launch_rows<T, BB, 1, XF>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M,
-                                     xf, s);
+                                     xf, E, s);
   return launch_rows<T, BB, PRE_LONG, XF>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn,
-                                          N, M, xf, s);
+                                          N, M, xf, E, s);
 }
 
 template <typename T, int BB>
 cudaError_t launch_rows_xf(const void* x, const void* vals, const void* nm_idx,
                            const void* vec_idx, void* y, int B, int n_in, int T_, int V,
-                           int K, int Kn, int N, int M, cudaStream_t s) {
+                           int K, int Kn, int N, int M, int E, cudaStream_t s) {
   const int xf = ((B < BB ? B : BB) * n_in * (int)sizeof(T) + 15) & ~15;
   constexpr bool small = std::is_same<T, __nv_bfloat16>::value && BB <= 4;
   if (small && xf <= XF_MAX && xf + rows_smem<T>(K, BB) <= MAX_SMEM)
     return launch_rows_shape<T, BB, small>(
-        x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, xf, s);
+        x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, xf, E, s);
   return launch_rows_shape<T, BB, false>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn,
-                                         N, M, 0, s);
+                                         N, M, 0, E, s);
 }
 
 template <typename T>
 cudaError_t dispatch_rows(const void* x, const void* vals, const void* nm_idx,
                           const void* vec_idx, void* y, int B, int n_in, int T_, int V,
-                          int K, int Kn, int N, int M, cudaStream_t s) {
+                          int K, int Kn, int N, int M, int E, cudaStream_t s) {
   int bb = B <= 1 ? 1 : B <= 4 ? 4 : B <= 8 ? 8 : 16;
   while (bb > 1 && rows_smem<T>(K, bb) > MAX_SMEM) bb = bb == 4 ? 1 : bb / 2;
   if (rows_smem<T>(K, bb) > MAX_SMEM) return cudaErrorInvalidValue;
   switch (bb) {
-    case 1: return launch_rows_xf<T, 1>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, s);
-    case 4: return launch_rows_xf<T, 4>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, s);
-    case 8: return launch_rows_xf<T, 8>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, s);
-    default: return launch_rows_xf<T, 16>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, s);
+    case 1: return launch_rows_xf<T, 1>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, E, s);
+    case 4: return launch_rows_xf<T, 4>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, E, s);
+    case 8: return launch_rows_xf<T, 8>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, E, s);
+    default: return launch_rows_xf<T, 16>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, E, s);
   }
 }
 
@@ -384,7 +402,8 @@ struct MmaSmem {                    // byte offsets of one block's dynamic share
   }
 };
 
-// xt (n_in, Bp) = x (B, n_in)^T, zero in the columns b >= B.  64 x 64 tiles,
+// xt (n_in, Bp) = x (B, n_in)^T, zero in the columns b >= B, per expert
+// (blockIdx.y = expert * Bp/64 + batch tile).  64 x 64 tiles,
 // 16-byte loads and stores; the tile's 16-byte segments are XOR-swizzled by
 // row so the column reads of the store phase hit distinct banks.
 __global__ void __launch_bounds__(256)
@@ -393,8 +412,11 @@ transpose_pad(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ x
   __shared__ __align__(16) unsigned short tile[64 * 64];  // [b][k], bf16 bits
   pdl_wait();
   pdl_trigger();                    // spmm_mma may start its prologue
+  const int nby = Bp / 64, e = blockIdx.y / nby;
+  x += (size_t)e * B * n_in;
+  xt += (size_t)e * n_in * Bp;
   const unsigned short* xb = reinterpret_cast<const unsigned short*>(x);
-  const int k0 = blockIdx.x * 64, b0 = blockIdx.y * 64;
+  const int k0 = blockIdx.x * 64, b0 = (blockIdx.y - e * nby) * 64;
   const bool vec = n_in % 8 == 0 && k0 + 64 <= n_in && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   for (int i = threadIdx.x; i < 64 * 8; i += blockDim.x) {
     const int b = i >> 3, seg = i & 7, bb = b0 + b, k = k0 + seg * 8;
@@ -441,13 +463,20 @@ __global__ void __launch_bounds__(MMA_WARPS * 32)
 spmm_mma(const __nv_bfloat16* __restrict__ xt, const __nv_bfloat16* __restrict__ vals,
          const int8_t* __restrict__ nm_idx, const int* __restrict__ vec_idx,
          __nv_bfloat16* __restrict__ y, float* __restrict__ part, int B, int Bp, int n_out,
-         int V, int K, int Kn, int N, int M, int fast, int cps) {
+         int V, int K, int Kn, int N, int M, int fast, int cps, int n_in, int nby) {
   constexpr int XS_LD = BM + 8;     // xs row (one kept column's BM inputs), padded
   constexpr int WM = BM / 32;       // warps along the batch
   extern __shared__ __align__(16) unsigned char smem[];
   const int PK = KC / M * N;                              // packed values per row per chunk
   const MmaSmem L(BM, V, PK, K);
-  const int t = blockIdx.x, b0 = blockIdx.y * BM;
+  // blockIdx.y = expert * nby + batch block: step to the expert's operands
+  const int e = blockIdx.y / nby, t = blockIdx.x, b0 = (blockIdx.y - e * nby) * BM;
+  xt += (size_t)e * n_in * Bp;
+  vals += (size_t)e * n_out * Kn;
+  nm_idx += (size_t)e * n_out * Kn;
+  vec_idx += (size_t)e * (n_out / V) * K;
+  y += (size_t)e * B * n_out;
+  if (part) part += (size_t)e * gridDim.z * B * n_out;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   int* vs = reinterpret_cast<int*>(smem + L.vs);
   const __nv_bfloat16* vt = vals + (size_t)t * V * Kn;
@@ -679,11 +708,14 @@ spmm_mma(const __nv_bfloat16* __restrict__ xt, const __nv_bfloat16* __restrict__
     }
 }
 
-// y = the sum of the S f32 partials part[z] (n values each, n % 4 == 0), in bf16
+// y = the sum of the S f32 partials part[z] (n values each, n % 4 == 0), in
+// bf16, for expert blockIdx.y (its S partials, then its n outputs)
 __global__ void sum_splits(const float* __restrict__ part, __nv_bfloat16* __restrict__ y,
                            int n, int S) {
   pdl_wait();
   pdl_trigger();
+  part += (size_t)blockIdx.y * S * n;
+  y += (size_t)blockIdx.y * n;
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (i >= n) return;
   float4 a = *reinterpret_cast<const float4*>(part + i);
@@ -720,7 +752,7 @@ template <int BM>
 cudaError_t launch_mma_bm(const __nv_bfloat16* xt, float* part, const void* vals,
                           const void* nm_idx, const void* vec_idx, void* y, int B, int Bp,
                           int T_, int V, int K, int Kn, int N, int M, const MmaPlan& plan,
-                          cudaStream_t s) {
+                          int n_in, int E, cudaStream_t s) {
   static int smem_set = 0;
   const int PK = KC / M * N;
   const int smem = MmaSmem(BM, V, PK, K).total;
@@ -731,38 +763,42 @@ cudaError_t launch_mma_bm(const __nv_bfloat16* xt, float* part, const void* vals
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
+  const int nby = (B + BM - 1) / BM;
+  if ((long long)E * nby > 65535) return cudaErrorInvalidValue;
   const int fast = PK % 16 == 0 && Kn % 16 == 0 &&
                    (reinterpret_cast<uintptr_t>(vals) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(nm_idx) & 15) == 0;
   cudaError_t e = launch_pdl(
-      spmm_mma<BM>, dim3(T_, (B + BM - 1) / BM, plan.splits), dim3(MMA_WARPS * 32), smem, s,
+      spmm_mma<BM>, dim3(T_, E * nby, plan.splits), dim3(MMA_WARPS * 32), smem, s,
       xt, static_cast<const __nv_bfloat16*>(vals), static_cast<const int8_t*>(nm_idx),
       static_cast<const int*>(vec_idx), static_cast<__nv_bfloat16*>(y),
-      plan.splits > 1 ? part : nullptr, B, Bp, T_ * V, V, K, Kn, N, M, fast, plan.cps);
+      plan.splits > 1 ? part : nullptr, B, Bp, T_ * V, V, K, Kn, N, M, fast, plan.cps, n_in,
+      nby);
   if (e != cudaSuccess || plan.splits == 1) return e;
   const int n = B * T_ * V;
-  return launch_pdl(sum_splits, dim3((n / 4 + 255) / 256), dim3(256), 0, s,
+  return launch_pdl(sum_splits, dim3((n / 4 + 255) / 256, E), dim3(256), 0, s,
                     static_cast<const float*>(part), static_cast<__nv_bfloat16*>(y), n,
                     plan.splits);
 }
 
 cudaError_t launch_mma(const void* x, const void* vals, const void* nm_idx,
                        const void* vec_idx, void* y, void* scratch, int B, int n_in,
-                       int T_, int V, int K, int Kn, int N, int M, cudaStream_t s) {
+                       int T_, int V, int K, int Kn, int N, int M, int E, cudaStream_t s) {
   if (scratch == nullptr || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
     return cudaErrorInvalidValue;
   const int Bp = pad_batch(B);
   const MmaPlan plan(B, T_, V, K);
   auto* xt = static_cast<__nv_bfloat16*>(scratch);
-  float* part = reinterpret_cast<float*>(xt + (size_t)n_in * Bp);
-  cudaError_t e = launch_pdl(transpose_pad, dim3((n_in + 63) / 64, Bp / 64), dim3(256), 0, s,
+  float* part = reinterpret_cast<float*>(xt + (size_t)E * n_in * Bp);
+  if ((long long)E * (Bp / 64) > 65535) return cudaErrorInvalidValue;
+  cudaError_t e = launch_pdl(transpose_pad, dim3((n_in + 63) / 64, E * (Bp / 64)), dim3(256), 0, s,
                              static_cast<const __nv_bfloat16*>(x), xt, B, n_in, Bp);
   if (e != cudaSuccess) return e;
   if (plan.bm == 128)
     return launch_mma_bm<128>(xt, part, vals, nm_idx, vec_idx, y, B, Bp, T_, V, K, Kn, N, M,
-                              plan, s);
+                              plan, n_in, E, s);
   return launch_mma_bm<64>(xt, part, vals, nm_idx, vec_idx, y, B, Bp, T_, V, K, Kn, N, M,
-                           plan, s);
+                           plan, n_in, E, s);
 }
 
 }  // namespace
@@ -773,45 +809,37 @@ extern "C" int hinm_spmm_variant(int B, int V, int M, int dtype) {
   return dtype == 1 && B > ROWS_MAX_B && mma_takes(V, M) ? 1 : 0;
 }
 
-// bf16 elements of the scratch a call of `variant` needs: for variant B the
-// transposed x, then the f32 partial sums of a split K; 0 for variant A.
-extern "C" long long hinm_spmm_scratch_elems(int variant, int B, int n_in, int T_, int V,
-                                             int K) {
+// bf16 elements of the scratch a call of `variant` over E experts needs: for
+// variant B each expert's transposed x, then each expert's f32 partial sums
+// of a split K; 0 for variant A.  The plan is one expert's (that of a
+// launch of the expert alone, so a stack's expert gives its bits).
+extern "C" long long hinm_spmm_scratch_elems(int variant, int E, int B, int n_in, int T_,
+                                             int V, int K) {
   if (variant != 1) return 0;
   const MmaPlan plan(B, T_, V, K);
-  return (long long)n_in * pad_batch(B) +
-         (plan.splits > 1 ? 2LL * plan.splits * B * T_ * V : 0);
+  return (long long)E * ((long long)n_in * pad_batch(B) +
+                         (plan.splits > 1 ? 2LL * plan.splits * B * T_ * V : 0));
 }
 
-// Launch the given variant; returns the cudaError_t of the launch (the
-// Python wrapper raises when it is not 0).  cudaErrorInvalidValue: a shape
-// or variant the kernel does not take.
-extern "C" int hinm_spmm_launch_variant(int variant, const void* x, const void* vals,
-                                        const void* nm_idx, const void* vec_idx, void* y,
-                                        void* scratch, int B, int n_in, int T_, int V,
-                                        int K, int Kn, int N, int M, int dtype,
-                                        void* stream) {
+// Launch `variant` over a stack of E experts (E = 1: one matrix); B is one
+// expert's rows.  Returns the cudaError_t of the launch (the Python wrapper
+// raises when it is not 0).  cudaErrorInvalidValue: a shape or variant the
+// kernel does not take.
+extern "C" int hinm_spmm_launch(int variant, int E, const void* x, const void* vals,
+                                const void* nm_idx, const void* vec_idx, void* y,
+                                void* scratch, int B, int n_in, int T_, int V, int K, int Kn,
+                                int N, int M, int dtype, void* stream) {
   if (V <= 0 || V % 8 != 0 || N <= 0 || M <= N || K <= 0 || K % M != 0 ||
-      Kn != K / M * N || B <= 0 || T_ <= 0 || n_in <= 0)
+      Kn != K / M * N || B <= 0 || T_ <= 0 || n_in <= 0 || E <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
     if (dtype != 1 || !mma_takes(V, M)) return (int)cudaErrorInvalidValue;
     return (int)launch_mma(x, vals, nm_idx, vec_idx, y, scratch, B, n_in, T_, V, K, Kn, N,
-                           M, s);
+                           M, E, s);
   }
   if (variant != 0) return (int)cudaErrorInvalidValue;
   return (int)(dtype == 1
-      ? dispatch_rows<__nv_bfloat16>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, s)
-      : dispatch_rows<float>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, s));
-}
-
-// The entry point: the variant hinm_spmm_variant picks.
-extern "C" int hinm_spmm_launch(const void* x, const void* vals, const void* nm_idx,
-                                const void* vec_idx, void* y, void* scratch, int B,
-                                int n_in, int T_, int V, int K, int Kn, int N, int M,
-                                int dtype, void* stream) {
-  return hinm_spmm_launch_variant(hinm_spmm_variant(B, V, M, dtype), x, vals, nm_idx,
-                                  vec_idx, y, scratch, B, n_in, T_, V, K, Kn, N, M, dtype,
-                                  stream);
+      ? dispatch_rows<__nv_bfloat16>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, E, s)
+      : dispatch_rows<float>(x, vals, nm_idx, vec_idx, y, B, n_in, T_, V, K, Kn, N, M, E, s));
 }

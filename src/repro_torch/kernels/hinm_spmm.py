@@ -10,6 +10,12 @@ cores through mma.sync; larger bf16 batches, reading a transposed copy of x
 and, for a split K, f32 partial sums from scratch the wrapper allocates).
 Its plain versions sit beside it: `hinm_spmm_ref` (the gather formulation)
 and `hinm_spmm_oracle` (unpack + matmul).
+
+An expert stack (a `PackedHiNM` whose fields carry a leading ``E``, with
+``x (E, C, n_in) -> y (E, C, n_out)``) runs in one launch, the reference's
+``jax.vmap`` of the matmul over experts: each expert's C rows take the
+variant the dispatch picks for C rows and give the bits a launch of that
+expert alone gives.
 """
 from __future__ import annotations
 
@@ -34,13 +40,12 @@ def _load():
     global _lib
     if _lib is None:
         lib = build.load("hinm_spmm")
-        args = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        lib.hinm_spmm_launch.argtypes = args
-        lib.hinm_spmm_launch_variant.argtypes = [ctypes.c_int] + args
-        lib.hinm_spmm_launch.restype = lib.hinm_spmm_launch_variant.restype = ctypes.c_int
+        lib.hinm_spmm_launch.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                                         + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        lib.hinm_spmm_launch.restype = ctypes.c_int
         lib.hinm_spmm_variant.argtypes = [ctypes.c_int] * 4
         lib.hinm_spmm_variant.restype = ctypes.c_int
-        lib.hinm_spmm_scratch_elems.argtypes = [ctypes.c_int] * 6
+        lib.hinm_spmm_scratch_elems.argtypes = [ctypes.c_int] * 7
         lib.hinm_spmm_scratch_elems.restype = ctypes.c_longlong
         _lib = lib
     return _lib
@@ -53,9 +58,10 @@ def _variant(b: int, v: int, m: int, dtype: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch(var: int, b: int, n_in: int, t: int, v: int, k: int) -> int:
-    """bf16 elements of scratch a call of variant index `var` needs."""
-    return _load().hinm_spmm_scratch_elems(var, b, n_in, t, v, k)
+def _scratch(var: int, e: int, b: int, n_in: int, t: int, v: int, k: int) -> int:
+    """bf16 elements of scratch a call of variant index `var` over `e`
+    experts of `b` rows each needs."""
+    return _load().hinm_spmm_scratch_elems(var, e, b, n_in, t, v, k)
 
 
 def variant(b: int, p: PackedHiNM, dtype: torch.dtype) -> str:
@@ -65,7 +71,9 @@ def variant(b: int, p: PackedHiNM, dtype: torch.dtype) -> str:
 
 
 def hinm_spmm(x: torch.Tensor, p: PackedHiNM, variant: str | None = None) -> torch.Tensor:
-    """y (B, n_out) = x (B, n_in) @ W_packed^T through the CUDA kernel.
+    """y (B, n_out) = x (B, n_in) @ W_packed^T through the CUDA kernel; for
+    an expert stack (vals (E, T, V, Kn)), y (E, C, n_out) = each expert's
+    x (E, C, n_in) rows against its own weights, in one launch.
 
     Takes CUDA tensors only (the dispatch in `ops.hinm_matmul` sends CPU
     tensors to the plain versions); raises on anything the kernel does not
@@ -78,8 +86,9 @@ def hinm_spmm(x: torch.Tensor, p: PackedHiNM, variant: str | None = None) -> tor
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"hinm_spmm: unknown variant {variant!r}; choose from {VARIANTS}")
     cfg = p.config
-    t, v, kn = p.vals.shape
+    t, v, kn = p.vals.shape[-3:]
     k = p.vec_idx.shape[-1]
+    lead = tuple(p.vals.shape[:-3])                       # () or (E,)
     if x.device.type != "cuda":
         raise ValueError(f"hinm_spmm: the CUDA kernel takes CUDA tensors, got {x.device}")
     for name, a in (("vals", p.vals), ("nm_idx", p.nm_idx), ("vec_idx", p.vec_idx)):
@@ -92,29 +101,28 @@ def hinm_spmm(x: torch.Tensor, p: PackedHiNM, variant: str | None = None) -> tor
                          "both be float32 or both bfloat16")
     if p.nm_idx.dtype != torch.int8 or p.vec_idx.dtype != torch.int32:
         raise ValueError("hinm_spmm: nm_idx must be int8 and vec_idx int32")
-    if (x.dim() != 2 or x.shape[1] != p.n_in or t * v != p.n_out
-            or p.nm_idx.shape != p.vals.shape or p.vec_idx.shape != (t, k)
+    if (len(lead) > 1 or x.dim() != 2 + len(lead) or tuple(x.shape[:-2]) != lead
+            or x.shape[-1] != p.n_in or t * v != p.n_out
+            or p.nm_idx.shape != p.vals.shape or p.vec_idx.shape != (*lead, t, k)
             or k % cfg.m or kn != k // cfg.m * cfg.n or v % 8):
         raise ValueError(
             f"hinm_spmm: unsupported shapes x {tuple(x.shape)}, vals "
             f"{tuple(p.vals.shape)}, vec_idx {tuple(p.vec_idx.shape)}, "
             f"{cfg.n}:{cfg.m} (V must be a multiple of 8, K of M)")
     x = x.contiguous()
-    b = x.shape[0]
-    y = torch.empty((b, p.n_out), dtype=x.dtype, device=x.device)
-    if b == 0:
+    e, b = (lead[0] if lead else 1), x.shape[-2]
+    y = torch.empty((*lead, b, p.n_out), dtype=x.dtype, device=x.device)
+    if b == 0 or e == 0:
         return y
     dt = _DTYPES[x.dtype]
     var = _variant(b, v, cfg.m, dt) if variant is None else VARIANTS.index(variant)
-    n_scratch = _scratch(var, b, p.n_in, t, v, k)
+    n_scratch = _scratch(var, e, b, p.n_in, t, v, k)
     scratch = (torch.empty(n_scratch, dtype=x.dtype, device=x.device) if n_scratch
                else None)
-    args = (x.data_ptr(), p.vals.data_ptr(), p.nm_idx.data_ptr(), p.vec_idx.data_ptr(),
-            y.data_ptr(), scratch.data_ptr() if n_scratch else None, b, p.n_in, t, v, k, kn,
-            cfg.n, cfg.m, dt, torch.cuda.current_stream(x.device).cuda_stream)
-    lib = _load()
-    status = (lib.hinm_spmm_launch(*args) if variant is None
-              else lib.hinm_spmm_launch_variant(var, *args))
+    status = _load().hinm_spmm_launch(
+        var, e, x.data_ptr(), p.vals.data_ptr(), p.nm_idx.data_ptr(), p.vec_idx.data_ptr(),
+        y.data_ptr(), scratch.data_ptr() if n_scratch else None, b, p.n_in, t, v, k, kn,
+        cfg.n, cfg.m, dt, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "hinm_spmm")
     hinm_spmm.launches += 1
     return y

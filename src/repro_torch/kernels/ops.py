@@ -76,10 +76,16 @@ def _count_dispatch(decision: str, reason: str) -> None:
 def hinm_matmul(x: torch.Tensor, p: PackedHiNM, backend: str = "auto",
                 variant: str | None = None) -> torch.Tensor:
     """y (..., n_out) = x (..., n_in) @ W_packed^T (rows in packed order).
-    `variant` picks the CUDA kernel's variant ("rows" or "mma"; None = its
-    dispatch's choice); the plain versions ignore it."""
+    For an expert stack (`p`'s fields lead with E) x is (E, C, n_in) and
+    y (E, C, n_out): one launch over every expert, each against its own
+    weights.  `variant` picks the CUDA kernel's variant ("rows" or "mma";
+    None = its dispatch's choice); the plain versions ignore it."""
+    stack = p.vals.dim() == 4
+    if stack and (x.dim() != 3 or x.shape[0] != p.vals.shape[0]):
+        raise ValueError(f"hinm_matmul: an expert stack of {p.vals.shape[0]} takes x "
+                         f"(E, C, n_in), got {tuple(x.shape)}")
     lead = x.shape[:-1]
-    xb = x.reshape(-1, x.shape[-1])
+    xb = x if stack else x.reshape(-1, x.shape[-1])
     backend = _resolve(backend, x, extra=("oracle",))
     if backend == "cuda":
         y = _spmm.hinm_spmm(xb, p, variant)
@@ -87,7 +93,7 @@ def hinm_matmul(x: torch.Tensor, p: PackedHiNM, backend: str = "auto",
         y = _spmm.hinm_spmm_ref(xb, p)
     else:
         y = _spmm.hinm_spmm_oracle(xb, p)
-    return y.reshape(*lead, p.n_out)
+    return y if stack else y.reshape(*lead, p.n_out)
 
 
 def paged_attention(

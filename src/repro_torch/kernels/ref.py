@@ -23,8 +23,17 @@ def decompress_tiles(
     return dense.reshape(t, v, g * m)
 
 
+def _per_expert(fn, x, p, *args):
+    """An expert stack's plain version: `fn` on each expert's rows
+    (x (E, C, n_in)) against its own weights, stacked."""
+    return torch.stack([fn(x[e], p.expert(e), *args) for e in range(p.vals.shape[0])])
+
+
 def hinm_spmm_oracle(x: torch.Tensor, p: PackedHiNM) -> torch.Tensor:
-    """Ground truth: unpack to masked-dense and matmul. x: (B, n_in)."""
+    """Ground truth: unpack to masked-dense and matmul. x: (B, n_in), or
+    (E, C, n_in) against an expert stack."""
+    if p.vals.dim() == 4:
+        return _per_expert(hinm_spmm_oracle, x, p)
     w = packing.unpack(p)  # (n_out, n_in), rows in packed (OCP) order
     return (x.float() @ w.float().T).to(x.dtype)
 
@@ -48,7 +57,10 @@ def hinm_spmm_xla(x: torch.Tensor, p: PackedHiNM,
     """Gather formulation of the packed matmul: per-tile gather of the kept
     input channels by `vec_idx`, N:M decompression, contraction over the K
     kept columns only.  For more than 1024 rows the (B, T, K) gather copy
-    is bounded by processing tiles in chunks (same FLOPs, bounded memory)."""
+    is bounded by processing tiles in chunks (same FLOPs, bounded memory).
+    An expert stack runs expert by expert (x (E, C, n_in))."""
+    if p.vals.dim() == 4:
+        return _per_expert(hinm_spmm_xla, x, p, chunk_bytes)
     cfg = p.config
     b = x.shape[0]
     t, v, kn = p.vals.shape

@@ -1,4 +1,5 @@
-"""Decoder-only transformer (port of `repro.models.transformer`, dense family).
+"""Decoder-only transformer (port of `repro.models.transformer`): the dense
+family, and the MoE family's backbone (a block's FFN is then `moe.MoE`).
 
 One `Block` module per layer in an `nn.ModuleList`, run by a Python loop —
 this replaces the reference's `lax.scan` over layer-stacked params.  The
@@ -17,6 +18,7 @@ from repro_torch.core.types import PackedHiNM
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import module as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import paging
 from repro_torch.models.module import PruneSpec
 
@@ -30,15 +32,25 @@ PREFIX_SHARE = True
 
 
 class Block(nn.Module):
-    def __init__(self, ln1: M.Norm, attn: L.Attention, ln2: M.Norm, mlp: L.MLP):
+    """Attention, then the FFN: ``mlp`` (dense family) or ``moe`` (MoE)."""
+
+    def __init__(self, ln1: M.Norm, attn: L.Attention, ln2: M.Norm, mlp: L.MLP | None = None,
+                 moe: MOE.MoE | None = None):
         super().__init__()
-        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+        self.ln1, self.attn, self.ln2 = ln1, attn, ln2
+        if moe is None:
+            self.mlp = mlp
+        else:
+            self.moe = moe
 
     def forward(self, x, positions, cfg, cache=None, backend: str = "auto",
                 spec: bool = False, variant: str | None = None):
         x = x + L.attention(self.attn, L.norm(self.ln1, x, cfg), positions, cfg,
                             cache, backend=backend, spec=spec, variant=variant)
-        return x + L.mlp(self.mlp, L.norm(self.ln2, x, cfg), cfg, backend, variant)
+        h = L.norm(self.ln2, x, cfg)
+        if cfg.family == "moe":
+            return x + MOE.moe_apply(self.moe, h, cfg, backend=backend, variant=variant)
+        return x + L.mlp(self.mlp, h, cfg, backend, variant)
 
 
 class Transformer(nn.Module):
@@ -53,8 +65,11 @@ class Transformer(nn.Module):
 
 def init_block(cfg, *, generator, device) -> Block:
     kw = dict(generator=generator, device=device)
-    return Block(L.norm_init(cfg, device=device), L.attention_init(cfg, **kw),
-                 L.norm_init(cfg, device=device), L.mlp_init(cfg, **kw))
+    ln1, attn, ln2 = (L.norm_init(cfg, device=device), L.attention_init(cfg, **kw),
+                      L.norm_init(cfg, device=device))
+    if cfg.family == "moe":
+        return Block(ln1, attn, ln2, moe=MOE.moe_init(cfg, **kw))
+    return Block(ln1, attn, ln2, L.mlp_init(cfg, **kw))
 
 
 def init(cfg, generator: torch.Generator | None = None, device="cuda") -> Transformer:
@@ -143,10 +158,15 @@ def from_params(cfg, params: dict) -> Transformer:
         bias = node.get("bias")
         return M.Norm(pick(node["scale"]), None if bias is None else pick(bias))
 
+    def ffn(i):
+        if "moe" in blk:
+            return dict(moe=MOE.MoE(**{n: lin(blk["moe"][n], i)
+                                       for n in ("router", "wg", "wu", "wd")}))
+        return dict(mlp=L.MLP(**{n: lin(node, i) for n, node in blk["mlp"].items()}))
+
     blocks = [Block(norm(blk["ln1"], i),
                     L.Attention(*(lin(blk["attn"][n], i) for n in ("wq", "wk", "wv", "wo"))),
-                    norm(blk["ln2"], i),
-                    L.MLP(**{n: lin(node, i) for n, node in blk["mlp"].items()}))
+                    norm(blk["ln2"], i), **ffn(i))
               for i in range(cfg.n_layers)]
     return Transformer(M.Embed(params["embed"]["table"]), blocks,
                        norm(params["ln_f"]), lin(params["lm_head"]))
@@ -260,7 +280,7 @@ def _decode_variant(model, b: int, x: torch.Tensor) -> str | None:
     """The K1 variant a decode step over `b` slots runs, for CUDA tensors
     of packed weights (None elsewhere: the plain versions take no variant,
     and a dense weight is a plain matmul)."""
-    w = model.blocks[0].mlp.wd.w
+    w = model.blocks[0].attn.wo.w
     if x.device.type != "cuda" or not isinstance(w, PackedHiNM):
         return None
     from repro_torch.kernels import hinm_spmm
@@ -281,7 +301,8 @@ def verify_step(model, cfg, tokens, cache, backend: str = "auto"):
     output element in an order that does not depend on the batch) and K2
     takes decode's split plan.  The dense vocab projection is one matmul
     over all B * S rows; chip_smoke checks on the card that its rows come
-    out bitwise as at decode's B rows."""
+    out bitwise as at decode's B rows.  An MoE block holds its experts to
+    the variant decode's capacity gets (`moe.moe_apply`)."""
     b, s = tokens.shape
     x = M.embed(model.embed, tokens)
     positions = (cache["pos"][0][:, None]
@@ -331,14 +352,17 @@ def hinm_plan(cfg) -> list[PruneSpec]:
         PruneSpec("attn/wv", row_blocks=cfg.n_kv_heads, consumers=("attn/wo:gqa",)),
         PruneSpec("attn/wo", can_permute_rows=False),
     ]
+    # an MoE block's expert stacks take the FFN's places; each of their
+    # items searches its experts in turn
+    prefix = "moe" if cfg.family == "moe" else "mlp"
     if cfg.act == "swiglu":
         specs += [
-            PruneSpec("mlp/wg", tied=("mlp/wu",), consumers=("mlp/wd",)),
-            PruneSpec("mlp/wd", can_permute_rows=False),
+            PruneSpec(f"{prefix}/wg", tied=(f"{prefix}/wu",), consumers=(f"{prefix}/wd",)),
+            PruneSpec(f"{prefix}/wd", can_permute_rows=False),
         ]
     else:
         specs += [
-            PruneSpec("mlp/wu", consumers=("mlp/wd",)),
-            PruneSpec("mlp/wd", can_permute_rows=False),
+            PruneSpec(f"{prefix}/wu", consumers=(f"{prefix}/wd",)),
+            PruneSpec(f"{prefix}/wd", can_permute_rows=False),
         ]
     return specs

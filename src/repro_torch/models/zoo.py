@@ -1,4 +1,5 @@
-"""Family dispatch (port of `repro.models.zoo`) — the dense family only.
+"""Family dispatch (port of `repro.models.zoo`): the dense and MoE families,
+both run by the transformer module.
 
   init(cfg, generator, device)            -> model
   forward(model, cfg, tokens, remat=)     -> pre-logits (B, S, D)
@@ -18,7 +19,7 @@ from repro_torch.core.types import PackedHiNM
 from repro_torch.models import module as M
 from repro_torch.models import transformer
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "moe": transformer}
 
 
 def model_for(cfg):
@@ -166,10 +167,11 @@ def pack_params(cfg, model):
     weights pass through: a model pruned by `train.pruning.prune_model`
     arrives permuted and packed.  A dense weight is packed here with no
     permutation — the paper's "noperm" route — so one that is not already
-    HiNM-sparse is magnitude-pruned by the packing itself."""
+    HiNM-sparse is magnitude-pruned by the packing itself.  An expert
+    stack is packed expert by expert into one stacked `PackedHiNM`."""
     for lin in _planned_linears(cfg, model):
         if not isinstance(lin.w, PackedHiNM):
-            lin.set_weight(packing.pack(lin.w.T, cfg.hinm))  # stored (n_in, n_out)
+            lin.set_weight(packing.pack_stored(lin.w, cfg.hinm))
     return model
 
 
@@ -179,5 +181,5 @@ def unpack_params(cfg, model):
     runs plain matmuls on the same numbers."""
     for lin in _planned_linears(cfg, model):
         if isinstance(lin.w, PackedHiNM):
-            lin.set_weight(packing.unpack(lin.w).T.contiguous())
+            lin.set_weight(packing.unpack_stored(lin.w))
     return model

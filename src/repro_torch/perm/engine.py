@@ -12,7 +12,9 @@ main thread.
 
 The reference vmaps over layer-stacked ``(L, ...)`` leaves; the port's
 model is a list of `Block` modules, so the engine loops over blocks and
-folds permutations into their `Linear`s in place.
+folds permutations into their `Linear`s in place.  An expert stack
+``(E, n_in, n_out)`` is one work item: its experts are searched in turn on
+the item's generator, as the reference's, and its perms are ``(E, n_out)``.
 
 Determinism: every item gets its own RNG derived from the base generator in
 canonical item order, so results are independent of worker count and
@@ -31,6 +33,7 @@ from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 import numpy as np
 import torch
 
+from repro_torch.core import packing
 from repro_torch.models import module as nn
 from repro_torch.perm import propagate, realize
 from repro_torch.perm.cache import PermCache
@@ -153,7 +156,14 @@ class ModelPermEngine:
 
     def _search_one(self, node: PermNode, w, tied_ws, fisher_leaf,
                     rng: np.random.Generator, virtual: bool):
-        """One work item: the search of one stored (n_in, n_out) weight."""
+        """One work item: the search of one stored (n_in, n_out) weight, or
+        of an expert stack's experts in order (stacked perms and orders)."""
+        if w.dim() == 3:
+            outs = [self._search_one(node, w[e], [tw[e] for tw in tied_ws],
+                                     None if fisher_leaf is None else fisher_leaf[e],
+                                     rng, virtual)
+                    for e in range(w.shape[0])]
+            return np.stack([o[0] for o in outs]), np.stack([o[1] for o in outs])
         if node.is_tied_partner and not virtual:
             # rows already follow the tie source; identity OCP, own ICP
             can_rows, row_blocks = False, 1
@@ -279,15 +289,23 @@ class ModelPermEngine:
 
     def _realize_layer(self, state: _LayerState, cgraph):
         """Pack + mask every searched node of one folded layer. Returns
-        ({path: stored-orientation mask}, {path: PackedHiNM})."""
+        ({path: stored-orientation mask}, {path: PackedHiNM}); an expert
+        stack's are stacked, and its retained saliency is its experts'
+        mean."""
         masks: dict[str, torch.Tensor] = {}
         packs: dict[str, object] = {}
         for path in cgraph.order:
             _, col_order = state.results[path]
-            lin = nn.get_path(state.layer, path)
-            identity = np.arange(lin.w.shape[1])
-            _, masks[path], packs[path], retained = realize.realize_stored(
-                lin.w, identity, col_order, self.hcfg)
+            w = nn.get_path(state.layer, path).w
+            if w.dim() == 3:
+                outs = [realize.realize_stored(w[e], np.arange(w.shape[2]), col_order[e],
+                                               self.hcfg) for e in range(w.shape[0])]
+                masks[path] = torch.stack([o[1] for o in outs])
+                packs[path] = packing.stack([o[2] for o in outs])
+                retained = float(np.mean([o[3] for o in outs]))
+            else:
+                _, masks[path], packs[path], retained = realize.realize_stored(
+                    w, np.arange(w.shape[1]), col_order, self.hcfg)
             self.report.per_layer.append((f"{state.tag}/{path}", retained))
         return masks, packs
 
@@ -326,10 +344,12 @@ class ModelPermEngine:
         """Mask-only pruning: searches in the ORIGINAL layout, each mask
         mapped back through the inverse row perm; the model untouched, no
         packing.  One work item per planned node, over all of a container's
-        layers in turn with the node's own generator; items run on the
-        thread pool.  Returns one {path: stored-orientation mask} dict per
-        block; the report keeps each search's row permutation, under which
-        the mask has the HiNM structure."""
+        layers in turn (and an expert stack's experts within each, the
+        reference's flattened leading dims) with the node's own generator;
+        items run on the thread pool.  Returns one {path: stored-orientation
+        mask} dict per block (an expert stack's (E, n_in, n_out)); the
+        report keeps each search's row permutation (an expert stack's
+        stacked), under which the mask has the HiNM structure."""
         instances = list(self.graph.instances())
         rngs = _spawn_rngs(self.rng, len(instances))
         misses0 = self.cache.misses if self.cache else 0
@@ -337,13 +357,22 @@ class ModelPermEngine:
 
         def one_instance(args):
             (key, node), rng = args
-            outs = []
-            for blk in getattr(model, key):
-                w = nn.get_path(blk, node.path).w
+            def one(w):
                 perm, col_order = self._search_one(node, w, [], None, rng, virtual=True)
                 r = realize.realize_matrix(w.T, perm, col_order, self.hcfg, pack=False)
                 mask = realize.mask_to_original_rows(r.mask_p, perm, axis=0)
-                outs.append((mask.T.contiguous(), r.retained, perm))
+                return mask.T.contiguous(), r.retained, perm
+
+            outs = []
+            for blk in getattr(model, key):
+                w = nn.get_path(blk, node.path).w
+                if w.dim() == 2:
+                    outs.append(one(w))
+                    continue
+                per = [one(we) for we in w]
+                outs.append((torch.stack([o[0] for o in per]),
+                             float(np.mean([o[1] for o in per])),
+                             np.stack([o[2] for o in per])))
             return outs
 
         t0 = time.perf_counter()

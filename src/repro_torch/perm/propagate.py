@@ -33,21 +33,35 @@ def gqa_expand_perm(perm_v: np.ndarray, n_kv: int, n_heads: int, hd: int) -> np.
 
 
 def permute_out(w: torch.Tensor, perm) -> torch.Tensor:
-    """Permute the stored n_out axis (axis -1) — producer row perm."""
+    """Permute the stored n_out axis (axis -1) — producer row perm; an
+    expert stack (E, n_in, n_out) by its (E, n_out) perms."""
+    if w.dim() == 3:
+        return torch.stack([permute_out(w[e], perm[e]) for e in range(w.shape[0])])
     return w.index_select(1, as_index(perm, w))
 
 
 def permute_bias(b: torch.Tensor, perm) -> torch.Tensor:
+    if b.dim() == 2:
+        return torch.stack([permute_bias(b[e], perm[e]) for e in range(b.shape[0])])
     return b.index_select(0, as_index(perm, b))
 
 
 def permute_in(w: torch.Tensor, perm) -> torch.Tensor:
-    """Permute the stored n_in axis — consumer column perm."""
+    """Permute the stored n_in axis — consumer column perm; an expert stack
+    by its (E, n_in) perms, or each expert by one (n_in,) perm."""
+    if w.dim() == 3:
+        p = perm if perm.ndim == 2 else np.broadcast_to(perm, (w.shape[0],) + perm.shape)
+        return torch.stack([permute_in(w[e], p[e]) for e in range(w.shape[0])])
     return w.index_select(0, as_index(perm, w))
 
 
+def _rows(perm: np.ndarray) -> np.ndarray:
+    """A perm, or a stack's perms, as rows."""
+    return perm.reshape(-1, perm.shape[-1])
+
+
 def is_identity(perm) -> bool:
-    return np.array_equal(perm, np.arange(perm.shape[0]))
+    return all(np.array_equal(p, np.arange(p.shape[0])) for p in _rows(perm))
 
 
 # ---------------------------------------------------------------------------
@@ -56,8 +70,9 @@ def is_identity(perm) -> bool:
 
 
 def check_bijection(perm: np.ndarray, what: str) -> None:
-    if not np.array_equal(np.sort(perm), np.arange(perm.shape[0])):
-        raise ValueError(f"{what}: folded perm is not a bijection")
+    for p in _rows(perm):
+        if not np.array_equal(np.sort(p), np.arange(p.shape[0])):
+            raise ValueError(f"{what}: folded perm is not a bijection")
 
 
 def check_identity(perm: np.ndarray, what: str) -> None:
@@ -66,8 +81,8 @@ def check_identity(perm: np.ndarray, what: str) -> None:
 
 
 def check_block_diagonal(perm: np.ndarray, row_blocks: int, what: str) -> None:
-    bs = perm.shape[0] // row_blocks
-    if not np.array_equal(perm // bs, np.arange(perm.shape[0]) // bs):
+    bs = perm.shape[-1] // row_blocks
+    if any(not np.array_equal(p // bs, np.arange(p.shape[0]) // bs) for p in _rows(perm)):
         raise ValueError(
             f"{what}: block-diagonal constraint violated "
             f"(a row crossed one of the {row_blocks} blocks)"

@@ -37,6 +37,7 @@ meaning "kernel launches the device ran".
 from __future__ import annotations
 
 import contextlib
+import gc
 
 import torch
 
@@ -110,8 +111,17 @@ class GraphCache:
             self._pool = torch.cuda.graph_pool_handle()
         before = [c.launches for c in _COUNTERS]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            body()
+        # no cyclic garbage collection inside a capture: it may destroy a
+        # dropped scheduler's graphs (a scheduler and its cache reference
+        # each other), and a capture refuses that, failing as invalidated
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                body()
+        finally:
+            if gc_on:
+                gc.enable()
         deltas = [c.launches - n for c, n in zip(_COUNTERS, before)]
         for c, n in zip(_COUNTERS, before):
             c.launches = n

@@ -3,7 +3,7 @@
 bert-base) against `repro.configs`, and their models at `reduced()`.
 
 Each config equals the reference's field for field (dtype mapped to the
-torch dtype of the same name).  At `reduced()` (2 layers, d_model 128,
+torch dtype of the same name), as do the MoE family's two.  At `reduced()` (2 layers, d_model 128,
 V 8, f32), each config's seeded weights (the port's init, laid out as the
 reference's params tree), HiNM-packed by the reference and carried by
 `params_from_numpy` — GQA 4/2 and MHA 4/4, the untied
@@ -32,6 +32,8 @@ from repro_torch.models import paging, zoo
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 NEW = ("qwen2_5_14b", "codeqwen1_5_7b", "starcoder2_15b", "bert_base")
+# the MoE family's configs (their models: tests/test_torch_moe.py)
+MOE = ("granite_moe_3b_a800m", "grok_1_314b")
 TOL = 1e-4
 MAX_SEQ = 64
 
@@ -56,7 +58,7 @@ def _fields(cfg) -> dict:
     return out
 
 
-@pytest.mark.parametrize("name", NEW)
+@pytest.mark.parametrize("name", NEW + MOE)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_equals_reference(name, reduced):
     jcfg, cfg = jbase.load_arch(name), base.load_arch(name)
@@ -68,7 +70,7 @@ def test_config_equals_reference(name, reduced):
 
 
 def test_load_arch_loads_ported_and_refuses_the_rest():
-    assert set(base.PORTED_IDS) == {"qwen2_0_5b", *NEW}
+    assert set(base.PORTED_IDS) == {"qwen2_0_5b", *NEW, *MOE}
     assert base.load_arch("qwen2_5_14b").draft_arch == "qwen2_0_5b"
     for name in set(base.ARCH_IDS + base.PAPER_IDS) - set(base.PORTED_IDS):
         with pytest.raises(KeyError, match="ROADMAP.md"):
