@@ -25,7 +25,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                card, then noperm: wall times, mean retained saliency (gyro >=
                noperm - 5e-3), every searched permutation re-checked
                against its constraints, and hinm_spmm held on gyro-pruned
-               projections (permuted vec_idx).
+               projections (permuted vec_idx).  It also starts phase 11's
+               layer-0 gyro searches in a child process.
   5. serve   — the gyro-pruned, packed model served by `Scheduler` over the
                paged KV pool, whose decode chunk, spec cycles and prefills
                run as captured CUDA graphs under double-buffered admission:
@@ -79,7 +80,7 @@ Phases (each prints its own lines; any failure exits non-zero):
                twin (torch.matmul): logits must agree.
   8. dense   — RMSNorm and LayerNorm rows bitwise across calls of 1, 4,
                16 and 64 rows at every ported d_model; qwen2.5-14b at its
-               published widths and 24 of its 48 layers, inited
+               published widths and 12 of its 48 layers, inited
                on the card (seeded) and packed with no permutation (peak
                memory, packed and dense bytes); K1 on its projections at B
                4, 16 ("rows", the verify's) and 512, per projection and
@@ -128,9 +129,36 @@ Phases (each prints its own lines; any failure exits non-zero):
                noperm: densities on schedule, the refresh's time, PermCache
                hits, the masks' HiNM structure, recovery gaps; and
                examples/train_hinm_lm_torch.py --steps 40 as a subprocess.
+ 11. frontend — the frontend-stub families at full width, inited on the
+               card (seeded), frontend rows seeded N(0, 1): phi-3-vision-4.2b
+               (32 layers, d 3072, 32/32 heads, hd 96, d_ff 8192; 576
+               patch rows before the prompt) and seamless-m4t-medium (12
+               encoder + 12 decoder layers, d 1024, 16/16 heads, hd 64,
+               d_ff 4096, vocab 256,206; frames through the encoder, the
+               decoder's cross-attention over each slot's enc_out of
+               T_ENC rows).  Each: layer 0 of each stack gyro-pruned by
+               `prune_model` (MOE_PRUNE_ITERS), then noperm (retained gyro
+               >= noperm - 5e-3, every permutation checked), in a child
+               process started in phase 4 beside its own search (phi-3's
+               takes ~150 s), tied to this phase's model by a digest of
+               the weights; the rest packed noperm; K1 on its projections at B 4, 16 ("rows")
+               and a prefill's width (seamless' cross-attention k/v also
+               at 4 x T_ENC rows) and K2 at its head layout, s 1/4/64/256,
+               held and timed; a verify row bitwise its decode step on a
+               live pool of frontend requests; frontend rows + prefill +
+               4 decode steps against the plain versions and a float32
+               twin; 8 greedy requests (phi-3: every other one after 576
+               patch rows; seamless: 64-256 frames, 8-64 tokens) on
+               Scheduler(max_slots=4, max_seq=1024, page=16,
+               decode_chunk=8), graphed and eager (launches per decode
+               step and admission group asserted: phi-3 224 K1 and 32 K2
+               a step; seamless 120 K1 a step, 192 a group, 12 K2), and
+               SpecConfig(k=3) fused: streams equal or parted at a near
+               tie.  Phase 8's norm rows cover their d_model 3072 and 1024.
 Each phase prints its seconds.  The line before the last holds the
 per-kernel JSON; the last line is {"ok": true, "device": {...}}.
 """
+import atexit
 import contextlib
 import copy
 import gc
@@ -888,10 +916,13 @@ def check_perms(cfg, report):
     from repro_torch.models import zoo
     from repro_torch.perm.engine import validate_out_perm
 
-    graph = zoo.perm_graph(cfg).containers[0].graph
+    containers = {c.tag: c for c in zoo.perm_graph(cfg).containers}
     for what, perm in report.out_perms.items():
+        graph = containers[what.split("[", 1)[0]].graph
         validate_out_perm(graph.nodes[what.split("/", 1)[1]], graph, perm, what)
-    expected = cfg.n_layers * len(graph.nodes)
+    # an encoder-decoder's two stacks: its encoder's layers, then the decoder's
+    expected = sum((cfg.n_enc_layers or cfg.n_layers) * len(c.graph.nodes) if c.key == "enc"
+                   else cfg.n_layers * len(c.graph.nodes) for c in containers.values())
     if len(report.out_perms) != expected:
         raise AssertionError(f"{len(report.out_perms)} searched perms, expected {expected}")
     return expected
@@ -990,7 +1021,7 @@ def rewind(cfg, cache, pos0):
     each profile runs at the same context length."""
     from repro_torch.models import zoo
 
-    n = int((cache["pos"][0] - pos0).max())
+    n = int((zoo.cache_position(cfg, cache) - pos0).max())
     if n > 0:
         zoo.cache_rollback(cfg, cache, None, pos0, torch.zeros_like(pos0), n)
 
@@ -2392,8 +2423,9 @@ def agree_phase(cfg, model):
 # the served target: qwen2.5-14b at its published widths and depth
 BIG = "qwen2_5_14b"
 # the 14B's served depth (widths full): its 48 layers are cut to 24 to pay
-# for phase 9 (the MoE family) within chip_smoke's time limit
-BIG_LAYERS = 24
+# for phase 9 (the MoE family), then to 12 for phase 11 (the frontend
+# families), within chip_smoke's time limit
+BIG_LAYERS = 12
 # the other dense configs at full width: codeqwen1.5-7b and starcoder2-15b
 # cut to 2 layers (depth only: their weights would not fit beside the
 # rest), bert-base whole
@@ -3751,6 +3783,569 @@ def train_phase() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11: the frontend-stub families (phi-3-vision, seamless-m4t-medium)
+# --------------------------------------------------------------------------
+
+VLM = "phi_3_vision_4_2b"
+ENCDEC = "seamless_m4t_medium"
+# the served geometry: phi-3's 576 patch rows, a prompt of up to 128 tokens
+# and FRONT_NEW new ones fit a 1,024-row slot
+FRONT_GEOM = dict(max_slots=4, max_seq=1024, page=16, decode_chunk=8)
+FRONT_NEW = 32
+# the encoder-output width each seamless slot keeps (its requests' most
+# frames)
+T_ENC = 256
+# seamless' frames (64-256) and decoder prompts (8-64 tokens) a request
+SEAMLESS_FRAMES = (64, 256, 128, 256, 64, 128, 256, 64)
+SEAMLESS_LENS = (8, 16, 24, 40, 64, 12, 33, 48)
+# phi-3's prompts; every other request carries 576 patch rows
+VLM_LENS = (16, 24, 40, 64, 96, 128, 33, 80)
+
+
+def front_one_layer(cfg, model):
+    """A model of the same config over layer 0 of each stack (views of
+    `model`'s modules), and its config."""
+    import dataclasses
+
+    from repro_torch.models import encdec, transformer
+
+    if cfg.family == "encdec":
+        return (dataclasses.replace(cfg, n_layers=1, n_enc_layers=1),
+                encdec.EncDec(model.frontend_proj, model.embed, [model.enc[0]], [model.dec[0]],
+                              model.ln_enc, model.ln_f, model.lm_head))
+    return (dataclasses.replace(cfg, n_layers=1),
+            transformer.Transformer(model.embed, [model.blocks[0]], model.ln_f, model.lm_head))
+
+
+FRONT_SEEDS = {VLM: 12, ENCDEC: 14}
+
+
+def front_init(name):
+    """`name` at full width, inited on the card from its FRONT_SEEDS
+    generator."""
+    from repro_torch.configs.base import load_arch
+    from repro_torch.models import zoo
+
+    cfg = load_arch(name)
+    gen = torch.Generator(device="cuda").manual_seed(FRONT_SEEDS[name])
+    return cfg, zoo.init(cfg, gen, "cuda")
+
+
+def front_layer0(cfg, model):
+    """Layer 0 of each stack, (key, layer) in plan order."""
+    return [(key, getattr(model, key)[0])
+            for key in (("enc", "dec") if cfg.family == "encdec" else ("blocks",))]
+
+
+def front_digest(cfg, model) -> list:
+    """The planned weights of layer 0 of each stack, summed and maxed in
+    float64: what ties a layer pruned in another process to this one."""
+    from repro_torch.models import module as M
+    from repro_torch.models import zoo
+
+    layers = dict(front_layer0(cfg, model))
+    return [(key, node.path, float(w.sum()), float(w.abs().max()))
+            for key, node in zoo.perm_graph(cfg).instances()
+            for w in [M.get_path(layers[key], node.path).w.double()]]
+
+
+def front_prune_child(out_dir):
+    """The frontend families' layer-0 gyro, in a process of its own: each
+    family inited as `front_init` does (the same weights as phase 11's),
+    layer 0 of each stack gyro-pruned by `prune_model` at MOE_PRUNE_ITERS,
+    then noperm (retained gyro >= noperm - GYRO_MARGIN, every permutation
+    checked); the gyro layer(s), the reports and `front_digest` saved
+    under `out_dir`.  The search is host-bound, so phase 4 starts this
+    beside its own search (`front_prune_start`) and phase 11 waits for
+    it (`front_prune_wait`)."""
+    from repro_torch.train import pruning
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name in FRONT_SEEDS:
+        cfg, model = front_init(name)
+        cfg1, one = front_one_layer(cfg, model)
+        out = {}
+        for method in ("gyro", "noperm"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, _, packed, rep = pruning.prune_model(
+                one, cfg1, method=method, rng=np.random.default_rng(0),
+                ocp_iters=MOE_PRUNE_ITERS[0], icp_iters=MOE_PRUNE_ITERS[1])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            kinds = "  ".join(f"{path} {sec:.1f} s" for path, sec in rep.item_seconds.items())
+            print(f"{name} layer 0 prune_model(method={method!r}, {MOE_PRUNE_ITERS[0]}/"
+                  f"{MOE_PRUNE_ITERS[1]}): {wall:.1f} s (search "
+                  f"{rep.phase_seconds['search']:.1f} s); {rep.searches_run} searches; mean "
+                  f"retained {rep.mean_retained:.6f}; host seconds per item: {kinds}",
+                  flush=True)
+            out[method] = dict(packed=packed, wall_s=wall, mean_retained=rep.mean_retained,
+                               item_seconds=rep.item_seconds, report=rep)
+        gyro, noperm = out["gyro"]["report"], out["noperm"]["report"]
+        n = check_perms(cfg1, gyro)
+        print(f"{name} layer 0: gyro {gyro.mean_retained:.6f} vs noperm "
+              f"{noperm.mean_retained:.6f} mean retained (gain "
+              f"{gyro.mean_retained - noperm.mean_retained:+.6f}); {n} searched perms pass "
+              "their constraint checks", flush=True)
+        if not gyro.mean_retained >= noperm.mean_retained - GYRO_MARGIN:
+            raise AssertionError(f"{name} gyro retained {gyro.mean_retained} < noperm "
+                                 f"{noperm.mean_retained} - {GYRO_MARGIN}")
+        torch.save(dict(layers=dict(front_layer0(cfg, out["gyro"]["packed"])),
+                        digest=front_digest(cfg, model), perms_checked=n,
+                        prune={m: {k: v[k] for k in ("wall_s", "mean_retained", "item_seconds")}
+                               for m, v in out.items()}),
+                   os.path.join(out_dir, f"{name}.pt"))
+        del model, one, out
+        free_card()
+
+
+def front_prune_start():
+    """Start `front_prune_child` in a process of its own; its output goes
+    to chiprun_out/front_prune.txt.  Returns (process, directory)."""
+    import tempfile
+
+    os.makedirs(OUT, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="front_prune_")
+    log = open(os.path.join(OUT, "front_prune.txt"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", "import chip_smoke as c; "
+                             f"c.front_prune_child({d!r})"], cwd=ROOT, stdout=log,
+                            stderr=subprocess.STDOUT)
+    log.close()
+    print(f"frontend layer-0 gyro started in process {proc.pid} (phase 11 waits for it)",
+          flush=True)
+    return proc, d
+
+
+def front_prune_wait(child) -> dict:
+    """Wait for `front_prune_start`'s process (up to 15 minutes more),
+    print its output and load what it saved: {name: its record}."""
+    import shutil
+
+    proc, d = child
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    with open(os.path.join(OUT, "front_prune.txt")) as f:
+        text = f.read()
+    print(f"frontend layer-0 gyro process: exit {rc}, waited {time.perf_counter() - t0:.1f} "
+          "s; its output:\n  " + "\n  ".join(text.strip().splitlines()[-12:]), flush=True)
+    if rc != 0:
+        raise AssertionError(f"the frontend layer-0 gyro process failed (exit {rc})")
+    out = {name: torch.load(os.path.join(d, f"{name}.pt"), weights_only=False)
+           for name in FRONT_SEEDS}
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def front_build(name, pruned):
+    """`name` at full width, inited on the card (`front_init`); layer 0 of
+    each stack from `pruned[name]` (the gyro layers `front_prune_child`
+    searched on the same weights, tied to them by `front_digest`); the
+    rest packed by `zoo.pack_params` with no permutation."""
+    from repro_torch.models import zoo
+    from repro_torch.serve import param_bytes
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model = front_init(name)
+    torch.cuda.synchronize()
+    info = dict(init_s=time.perf_counter() - t0, held_before=held,
+                init_peak=torch.cuda.max_memory_allocated())
+    rec = pruned[name]
+    if front_digest(cfg, model) != rec["digest"]:
+        raise AssertionError(f"{name}: the pruned process's layer 0 is not this model's")
+    for key, layer in rec["layers"].items():
+        getattr(model, key)[0] = layer
+    t = time.perf_counter()
+    zoo.pack_params(cfg, model)
+    torch.cuda.synchronize()
+    packed_b, dense_b = param_bytes(model)
+    info.update(pack_s=time.perf_counter() - t, peak=torch.cuda.max_memory_allocated(),
+                after=torch.cuda.memory_allocated(), packed_bytes=packed_b, dense_bytes=dense_b,
+                prune=rec["prune"], perms_checked=rec["perms_checked"])
+    print(f"{name}: {cfg.n_layers} layers{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''}"
+          f" d_model {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.head_dim} d_ff "
+          f"{cfg.d_ff} vocab {cfg.vocab} -> {cfg.vocab_padded}, {cfg.norm}/{cfg.act}; layer 0 "
+          f"gyro {rec['prune']['gyro']['mean_retained']:.6f} (noperm "
+          f"{rec['prune']['noperm']['mean_retained']:.6f}, {rec['prune']['gyro']['wall_s']:.1f} s "
+          f"in its own process); init {info['init_s']:.1f} s, pack {info['pack_s']:.1f} s; "
+          f"weights {gb(packed_b)} packed vs {gb(dense_b)} dense; card memory {gb(held)} held "
+          f"before, peak {gb(info['init_peak'])} after init and {gb(info['peak'])} through "
+          f"pack, {gb(info['after'])} after", flush=True)
+    return cfg, model, info
+
+
+def front_k1(label, cfg, model, gen):
+    """K1 on each distinct projection shape of layer 0 (decoder layer 0 of
+    an encoder-decoder, gyro-pruned: permuted vec_idx) at B 4 (decode), 16
+    ("rows", the verify's) and a prefill's width (one request's rows: 576
+    patch rows + 64 tokens for phi-3, 64 tokens for seamless); and
+    seamless' cross-attention k/v at B = 4 slots x T_ENC (every decode
+    step's)."""
+    from repro_torch.models import module as M
+
+    layer = model.dec[0] if cfg.family == "encdec" else model.blocks[0]
+    mlp = ("mlp/wg", "mlp/wu", "mlp/wd") if cfg.act == "swiglu" else ("mlp/wu", "mlp/wd")
+    attn = ("attn/wq", "attn/wk", "attn/wv", "attn/wo")
+    paths = attn + (("xattn/wq", "xattn/wk", "xattn/wv", "xattn/wo")
+                    if cfg.family == "encdec" else ()) + mlp
+    prefill_b = 576 + 64 if cfg.family == "vlm" else 64
+    seen, out, per = set(), [], {}
+    for path in paths:
+        p = M.get_path(layer, path).w
+        per[path] = (p.n_out, p.n_in)
+        if (p.n_out, p.n_in) in seen:
+            continue
+        seen.add((p.n_out, p.n_in))
+        for b, var in ((4, None), (16, "rows"), (prefill_b, None)):
+            out.append(k1_case(f"{label} {path}", p, b, gen, variant=var))
+    if cfg.family == "encdec":
+        for path in ("xattn/wk", "xattn/wv"):
+            out.append(k1_case(f"{label} {path} enc", M.get_path(layer, path).w,
+                               FRONT_GEOM["max_slots"] * T_ENC, gen))
+    # a decoder layer's projections per call kind, summed from the cases
+    layer_ms = {}
+    for b in (4, 16, prefill_b):
+        cases = {tuple(c["shape"]): c for c in out if c["B"] == b}
+        layer_ms[f"B{b}"] = {k: sum(cases[per[p]][k] for p in paths)
+                             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    if cfg.family == "encdec":
+        enc = [c for c in out if c["case"].endswith(" enc")]
+        layer_ms[f"xattn kv B{FRONT_GEOM['max_slots'] * T_ENC}"] = {
+            k: sum(c[k] for c in enc) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    for k, v in layer_ms.items():
+        print(f"K1 {label}, one decoder layer's {len(paths)} projections at {k}: kernel "
+              f"{v['ms'] * 1e3:.1f} us, plain {v['plain_ms'] * 1e3:.1f} us, matmul "
+              f"{v['library_ms'] * 1e3:.1f} us, bound {v['bound_ms'] * 1e3:.1f} us"
+              if not k.startswith("xattn") else
+              f"K1 {label}, the cross-attention's k and v over {k}: kernel "
+              f"{v['ms'] * 1e3:.1f} us, plain {v['plain_ms'] * 1e3:.1f} us, matmul "
+              f"{v['library_ms'] * 1e3:.1f} us, bound {v['bound_ms'] * 1e3:.1f} us",
+              flush=True)
+    return out, layer_ms
+
+
+def front_embeds(n, d, seed):
+    """`n` rows of seeded N(0, 1) frontend-stub embeddings, float32."""
+    return np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+
+
+def front_requests(cfg):
+    """The phase's 8 greedy requests, FRONT_NEW new tokens each, one
+    arriving a step: phi-3's prompts, every other one after 576 patch
+    rows; seamless' prompts of 8-64 tokens, each with 64-256 frames."""
+    from repro_torch.serve import Request, SamplingParams
+
+    rng = np.random.default_rng(31)
+    if cfg.family == "vlm":
+        spec = [(n, cfg.frontend_tokens if i % 2 == 0 else 0) for i, n in enumerate(VLM_LENS)]
+    else:
+        spec = list(zip(SEAMLESS_LENS, SEAMLESS_FRAMES))
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n, _ in spec]
+    embeds = [front_embeds(p, cfg.d_model, 60 + i) if p else None
+              for i, (_, p) in enumerate(spec)]
+
+    def make():
+        return [Request(rid=i, prompt=p, params=SamplingParams(max_new_tokens=FRONT_NEW),
+                        embeds=e, arrival=i) for i, (p, e) in enumerate(zip(prompts, embeds))]
+    return make
+
+
+def front_cache_kw(cfg) -> dict:
+    return {"t_enc": T_ENC} if cfg.family == "encdec" else {}
+
+
+@torch.no_grad()
+def front_live_pool(cfg, model, kv, reserve):
+    """PROFILE_LENS prompts, each with its frontend rows (576 patch rows, or
+    T_ENC frames), prefilled in one group into the served `SlotKVCache`;
+    returns the slots and each one's greedy first token (B, 1)."""
+    from repro_torch.models import zoo
+    from repro_torch.serve import sampler
+
+    b = len(PROFILE_LENS)
+    p = cfg.frontend_tokens if cfg.family == "vlm" else T_ENC
+    rng = np.random.default_rng(3)
+    tokens = np.zeros((b, max(PROFILE_LENS)), np.int32)
+    for i, n in enumerate(PROFILE_LENS):
+        tokens[i, :n] = rng.integers(0, cfg.vocab, n)
+    extra = p if cfg.family == "vlm" else 0
+    embeds = torch.from_numpy(np.stack([front_embeds(p, cfg.d_model, 70 + i)
+                                        for i in range(b)])).cuda()
+    n_rows = torch.tensor([n + extra for n in PROFILE_LENS], dtype=torch.int32, device="cuda")
+    stripe = kv.template(b)
+    last = zoo.prefill(model, cfg, torch.from_numpy(tokens).cuda(), stripe, embeds=embeds,
+                       n_rows=n_rows)
+    tok = sampler.greedy(zoo.logits_fn(model, cfg, last)[:, : cfg.vocab].float())[:, None]
+    slots = [kv.acquire() for _ in range(b)]
+    for row, (slot, n) in enumerate(zip(slots, PROFILE_LENS)):
+        kv.insert(slot, stripe, n + extra, row=row, reserve=n + extra + reserve)
+    return slots, tok
+
+
+def f32_twin(cfg, model):
+    """A float32 copy of the whole model over the same masked weights:
+    every packed projection unpacked to dense f32, every other tensor cast
+    (TF32 stays off)."""
+    import dataclasses
+
+    from repro_torch.core import packing
+    from repro_torch.core.types import PackedHiNM
+    from repro_torch.models import module as M
+
+    twin = copy.deepcopy(model)
+    for mod in twin.modules():
+        if isinstance(mod, M.Linear):
+            w = packing.unpack_stored(mod.w) if isinstance(mod.w, PackedHiNM) else mod.w
+            mod.set_weight(w.float().contiguous())
+        for name, t in list(mod._buffers.items()):
+            if t is not None and t.is_floating_point():
+                mod._buffers[name] = t.float()
+    return dataclasses.replace(cfg, dtype=torch.float32), twin
+
+
+@torch.no_grad()
+def front_forced(cfg, model, prompt, embeds, forced, backend):
+    """Prefill `prompt` after its frontend rows (`embeds`), then paged
+    decode steps fed the `forced` tokens: the stacked logits (1 + steps,
+    B, vocab) in f32."""
+    from repro_torch.models import zoo
+    from repro_torch.serve.kv import SlotKVCache
+
+    b, n = prompt.shape
+    rows = n + (embeds.shape[1] if cfg.family == "vlm" else 0)
+    kv = SlotKVCache(cfg, b, FRONT_GEOM["max_seq"], page=16, n_pages=None, device="cuda",
+                     **front_cache_kw(cfg))
+    stripe = kv.template(b)
+    last = zoo.prefill(model, cfg, prompt, stripe, embeds=embeds, backend=backend)
+    logits = [zoo.logits_fn(model, cfg, last)]
+    for row in range(b):
+        kv.insert(kv.acquire(), stripe, rows, row=row, reserve=rows + len(forced))
+    for tok in forced:
+        logits.append(zoo.decode_step(model, cfg, tok, kv.cache, backend=backend))
+    return torch.stack(logits)[..., : cfg.vocab].float()
+
+
+def front_agree(label, cfg, model, n_prompt=40, n_dec=4):
+    """Frontend rows (576 patch rows, or T_ENC frames through the encoder)
+    + a teacher-forced prompt + `n_dec` paged decode steps through the
+    kernels, against the plain versions and against a float32 twin of the
+    same masked weights (`f32_twin`)."""
+    rng = np.random.default_rng(11)
+    b = 2
+    p = cfg.frontend_tokens if cfg.family == "vlm" else T_ENC
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, n_prompt)).astype(np.int32)).cuda()
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab, (n_dec, b, 1)).astype(np.int32)).cuda()
+    embeds = torch.from_numpy(np.stack([front_embeds(p, cfg.d_model, 80 + i)
+                                        for i in range(b)])).cuda()
+    a = front_forced(cfg, model, prompt, embeds, forced, "auto")
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"{label}: non-finite logits on the kernel path")
+    what = (f"{p} patch rows + " if cfg.family == "vlm" else f"encode {T_ENC} frames + ")
+    out = {"plain": compare_logits(f"{label}: kernels vs plain versions, {what}prefill + "
+                                   f"{n_dec} paged decode steps", a,
+                                   front_forced(cfg, model, prompt, embeds, forced, "torch"))}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32, twin = f32_twin(cfg, model)
+    out["f32"] = compare_logits(f"{label}: kernels vs a float32 twin of the masked weights "
+                                "(TF32 off)", a,
+                                front_forced(cfg32, twin, prompt, embeds, forced, "torch"),
+                                tol=F32_TOL)
+    del twin
+    free_card()
+    return out
+
+
+@torch.no_grad()
+def front_replay(cfg, model, sched, by_rid, group, rid, j):
+    """The logits (vocab,) f32 of request `rid`'s token j: its admission
+    group (`group`, rids) re-prefilled exactly as `Scheduler._admit_group`
+    does (bucket, padded width, frontend rows, row counts), its row
+    inserted into a pool of the scheduler's geometry, then decode steps
+    fed its own tokens up to j."""
+    from repro_torch.models import zoo
+    from repro_torch.serve.kv import SlotKVCache
+
+    rows = [by_rid[r] for r in group]
+    k = len(rows)
+    k_b = 1
+    while k_b < k:
+        k_b *= 2
+    padded = [rows[min(i, k - 1)] for i in range(k_b)]
+    n0 = len(rows[0].prompt)
+    s_b = sched._bucket_len(n0, sched._cache_rows(rows[0]) - n0)
+    toks = np.zeros((k_b, s_b), np.int32)
+    for i, r in enumerate(padded):
+        toks[i, : len(r.prompt)] = r.prompt
+    n_rows = torch.tensor([sched._cache_rows(r) for r in padded], dtype=torch.int32,
+                          device="cuda")
+    embeds = (None if rows[0].embeds is None
+              else torch.from_numpy(np.stack([r.embeds for r in padded])).cuda())
+    kv = SlotKVCache(cfg, sched.max_slots, sched.max_seq, page=16, n_pages=None,
+                     device="cuda", **front_cache_kw(cfg))
+    st = kv.template(k_b)
+    last = zoo.prefill(model, cfg, torch.from_numpy(toks).cuda(), st, embeds=embeds,
+                       n_rows=n_rows)
+    row = group.index(rid)
+    req = by_rid[rid]
+    logits = zoo.logits_fn(model, cfg, last)[row, : cfg.vocab].float()
+    n = sched._cache_rows(req)
+    kv.insert(kv.acquire(), st, n, row=row, reserve=n + j + 1)
+    tok = torch.zeros((sched.max_slots, 1), dtype=torch.int32, device="cuda")
+    for t in range(j):
+        tok[0, 0] = req.tokens[t]
+        logits = zoo.decode_step(model, cfg, tok, kv.cache)[0, : cfg.vocab].float()
+    return logits
+
+
+def front_streams(label, cfg, model, sched, ref, got, noise):
+    """`got`'s streams against `ref`'s, request by request: equal, or parted
+    only at a near tie — the reference run's token at the parting point,
+    replayed in its admission group (`front_replay`), must be what that run
+    drew, with a top-2 margin within `noise` plus how far the request's
+    logits there move between its two runs' admission groups (a fault
+    where the margin is larger, or the noise 0)."""
+    by_rid = {r.rid: r for r in ref}
+    g_ref, g_got = admission_groups(ref), admission_groups(got)
+    partings = []
+    for a, b in zip(ref, got):
+        if a.tokens == b.tokens:
+            continue
+        j = next((i for i, (x, y) in enumerate(zip(a.tokens, b.tokens)) if x != y), None)
+        if j is None:
+            raise AssertionError(f"{label}: request {a.rid} emitted {len(b.tokens)} tokens "
+                                 f"against {len(a.tokens)}, equal as far as the shorter goes")
+        lg = front_replay(cfg, model, sched, by_rid, g_ref[a.rid], a.rid, j)
+        width = 0.0
+        if g_got[a.rid] != g_ref[a.rid]:
+            other = dict(by_rid, **{r.rid: r for r in got if r.rid in g_got[a.rid]})
+            width = float((front_replay(cfg, model, sched, other, g_got[a.rid], a.rid, j)
+                           - lg).abs().max())
+        top2 = torch.topk(lg, 2).values
+        margin, drawn = float(top2[0] - top2[1]), int(lg.argmax())
+        limit = noise + width
+        partings.append(dict(rid=a.rid, index=j, margin=margin, threshold=limit,
+                             replay_matches=drawn == a.tokens[j],
+                             near_tie=drawn == a.tokens[j] and margin <= limit and limit > 0))
+    same = sum(a.tokens == b.tokens for a, b in zip(ref, got))
+    print(f"{label}: streams equal {same}/{len(ref)}; {len(partings)} parting(s)" + "".join(
+        f"\n  request {p['rid']} at token {p['index']}: top-2 margin {p['margin']:.3e} "
+        f"(threshold {p['threshold']:.3e}), replay draws the token {p['replay_matches']}, "
+        f"near tie {p['near_tie']}" for p in partings), flush=True)
+    if any(not p["near_tie"] for p in partings):
+        raise AssertionError(f"{label}: streams part beyond the near-tie rule")
+    return dict(identical=same, requests=len(ref), partings=partings)
+
+
+def front_launches(label, cfg, line, reqs, verify=False):
+    """The graphed run's launches, counted through replays, against what its
+    programs make: per decode step (or verify forward) every decoder
+    layer's projections on K1 (7 a phi-3 layer; 10 a seamless decoder
+    layer: self and cross q/k/v/o, up and down) and its self-attention on
+    K2; per admission group the prefill's (the decoder's, and the
+    encoder's 6 a layer)."""
+    per_layer = 7 if cfg.act == "swiglu" else 6
+    if cfg.family == "encdec":
+        step = (per_layer + 4) * cfg.n_layers
+        group = step + per_layer * cfg.n_enc_layers
+    else:
+        step = group = per_layer * cfg.n_layers
+    fwd = line["verify_steps"] if verify else line["decode_steps"]
+    groups = len(set(admission_groups(reqs).values()))
+    want = (fwd * step + groups * group, fwd * cfg.n_layers)
+    print(f"{label}: launches hinm_spmm {line['hinm_spmm']}, paged_decode_attn "
+          f"{line['paged_decode_attn']} (want {want[0]}, {want[1]}: {step} and {cfg.n_layers} a "
+          f"{'verify' if verify else 'decode step'} x {fwd}, {group} K1 an admission group x "
+          f"{groups})", flush=True)
+    if (line["hinm_spmm"], line["paged_decode_attn"]) != want:
+        raise AssertionError(f"{label}: launches differ from the programs' count")
+    return dict(per_step_k1=step, per_step_k2=cfg.n_layers, per_group_k1=group, groups=groups)
+
+
+def front_serve(label, cfg, model, bits):
+    """8 greedy requests (`front_requests`) on `Scheduler(**FRONT_GEOM)`:
+    graphed and as the eager twin, launches per decode step asserted; then
+    SpecConfig(k=3) fused (n-gram), graphed.  Graphed streams against the
+    eager twin's and spec against plain: equal, or parted at a near tie
+    (`front_streams`: the captured-vs-eager gap, or the verify's gap from
+    decode, plus the admission group's)."""
+    from repro_torch.serve import Scheduler, SpecConfig
+
+    make = front_requests(cfg)
+    kw = dict(FRONT_GEOM, cache_kw=front_cache_kw(cfg) or None)
+    plain = Scheduler(cfg, model, **kw)
+    print(f"{label} scheduler: KV pool {gb(plain.kv.pool_bytes())} ({plain.kv.n_pages} "
+          f"pages{f', enc_out {T_ENC} rows a slot' if cfg.family == 'encdec' else ''})",
+          flush=True)
+    runs = {"plain": serve_run(f"{label} plain", plain, make)}
+    reqs, line = runs["plain"]["graphed"]
+    line["launch_plan"] = front_launches(f"{label} plain", cfg, line, reqs)
+    out = {"twins": front_streams(f"{label} graphed vs eager", cfg, model, plain,
+                                  runs["plain"]["eager"][0], reqs,
+                                  bits["graph_vs_eager_max_abs_dlogit"])}
+    before_after(f"{label} plain", runs["plain"])
+    spec = Scheduler(cfg, model, spec=SpecConfig(k=SPEC_K), **kw)
+    runs["spec fused"] = serve_run(f"{label} spec fused", spec, make, eager=False)
+    sreqs, sline = runs["spec fused"]["graphed"]
+    sline["launch_plan"] = front_launches(f"{label} spec fused", cfg, sline, sreqs, verify=True)
+    out["spec"] = front_streams(f"{label} spec fused vs plain", cfg, model, plain, reqs, sreqs,
+                                bits["max_abs_dlogit"])
+    out["runs"] = {k: {m: ln for m, (_, ln) in v.items()} for k, v in runs.items()}
+    del plain, spec
+    free_card()
+    return out
+
+
+def front_model_phase(label, name, pruned):
+    """One family's path: build, kernels at its shapes, a verify against
+    decode on a live pool, agreement, serving."""
+    from repro_torch.serve.kv import SlotKVCache
+
+    seed = FRONT_SEEDS[name]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    t0 = time.perf_counter()
+    cfg, model, info = front_build(name, pruned)
+    parts = {"build": time.perf_counter() - t0}
+    t = time.perf_counter()
+    out = {"build": info, "name": name}
+    out["k1"], out["k1_layer"] = front_k1(label, cfg, model, gen)
+    out["k2"] = k2_shapes(label, cfg, (1, SPEC_K + 1, 64, 256), seed + 40)
+    parts["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    kv = SlotKVCache(cfg, len(PROFILE_LENS), FRONT_GEOM["max_seq"], page=16, n_pages=None,
+                     device="cuda", **front_cache_kw(cfg))
+    slots, tok = front_live_pool(cfg, model, kv, SPEC_K + 2)
+    bits = out["spec_bits"] = spec_bits(cfg, model, kv.cache, tok)
+    if not bits["bit_equal"]:
+        raise AssertionError(f"{label}: a verify row is not bitwise its decode step")
+    for slot in slots:
+        kv.release(slot)
+    del kv
+    out["agree"] = front_agree(label, cfg, model)
+    parts["agree"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["serve"] = front_serve(label, cfg, model, bits)
+    parts["serve"] = time.perf_counter() - t
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del model
+    free_card()
+    out["parts_s"] = parts
+    print(f"{label} parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()),
+          flush=True)
+    return out
+
+
+def frontend_phase(child):
+    """Phase 11: phi-3-vision-4.2b and seamless-m4t-medium at full width
+    on the card (`front_model_phase` each), their layer-0 gyro from
+    `child` (`front_prune_start`)."""
+    pruned = front_prune_wait(child)
+    return {"phi-3": front_model_phase("phi-3", VLM, pruned),
+            "seamless": front_model_phase("seamless", ENCDEC, pruned)}
+
+
 T_START = time.perf_counter()
 
 
@@ -3786,6 +4381,9 @@ def main() -> int:
     phase("4. prune")
     cfg, model = full_model()
     k3_launches, k3_path = nm_apply_path(model)
+    # phase 11's layer-0 gyro searches, beside this phase's own
+    child = front_prune_start()
+    atexit.register(lambda: child[0].poll() is None and child[0].kill())
     gen = torch.Generator(device="cuda").manual_seed(2)
     model, pruned, k1_gyro = prune_phase(cfg, model, gen)
     k3.append(k3_path)
@@ -3811,8 +4409,13 @@ def main() -> int:
 
     phase("10. train")
     trained = train_phase()
+
+    phase("11. frontend")
+    front = frontend_phase(child)
     phase()
 
+    front_k1s = [c for f in front.values() for c in f["k1"]]
+    front_k2s = [c for f in front.values() for c in f["k2"]]
     k2_rep = next(c for c in k2 if c["case"] == "s=1 window=0" and c["dtype"] == "bfloat16")
     k2_verify = next(c for c in k2 if c["case"] == "verify s=4" and c["dtype"] == "bfloat16")
     k2_ext = {f"s={c['s']} {c['dtype']}": {k: c[k] for k in (
@@ -3825,7 +4428,9 @@ def main() -> int:
              | {f"share {k}": v["graphed"] for k, v in shared.items()}
              | {f"14B {k}": v["graphed"] for k, v in big["serve"]["runs"].items()}
              | {"0.5B self-draft": dense["self_draft"]["line"]}
-             | {f"granite {k}": v["graphed"] for k, v in moe["serve"]["runs"].items()})
+             | {f"granite {k}": v["graphed"] for k, v in moe["serve"]["runs"].items()}
+             | {f"{m} {k}": v["graphed"] for m, f in front.items()
+                for k, v in f["serve"]["runs"].items()})
     by_path = {name: {p: paths[p][name] for p in paths}
                for name in ("hinm_spmm", "paged_decode_attn")}
     for name, counts in by_path.items():
@@ -3844,14 +4449,16 @@ def main() -> int:
                                       "wd 1536x512, C rows an expert; layer = wg + wu + wd")},
              dense_family={BIG: big["k1_layer"]} | {
                  name: {"layers": o["build"]["layers"]} for name, o in dense["others"].items()},
+             frontend={f["name"]: dict(layer=f["k1_layer"], launch_plan=f["serve"]["runs"][
+                 "plain"]["graphed"]["launch_plan"]) for f in front.values()},
              prefill=k1_prefill_layer(k1, served["prefill_k1_per_admission"]),
              extension=layer.pop("extension"),
              **{**layer,
                 "max_abs_err": max([layer["max_abs_err"]]
-                                   + [c["max_abs_err"] for c in k1 + moe["k1"]]),
+                                   + [c["max_abs_err"] for c in k1 + moe["k1"] + front_k1s]),
                 "max_rel_err": max([layer["max_rel_err"]]
-                                   + [c["max_rel_err"] for c in k1 + moe["k1"]])},
-             cases=k1),
+                                   + [c["max_rel_err"] for c in k1 + moe["k1"] + front_k1s])},
+             cases=k1 + front_k1s),
         dict(name="paged_decode_attn", route="cuda",
              source="src/repro_torch/csrc/paged_attn.cu",
              replaces="src/repro/kernels/paged_attn.py:116",
@@ -3860,16 +4467,20 @@ def main() -> int:
              dense_family={BIG: {f"s={c['s']}": {k: c[k] for k in (
                  "KV", "G", "hd", "n_splits", "n_tiles", "ms", "plain_ms", "library_ms",
                  "sdpa_only_ms", "bound_ms", "bound_by", "max_abs_err")} for c in big["k2"]}},
+             frontend={f["name"]: {f"s={c['s']}": {k: c[k] for k in (
+                 "KV", "G", "hd", "n_splits", "n_tiles", "ms", "plain_ms", "library_ms",
+                 "sdpa_only_ms", "bound_ms", "bound_by", "max_abs_err")} for c in f["k2"]}
+                 for f in front.values()},
              verify={k: k2_verify[k] for k in ("s", "n_splits", "ms", "plain_ms", "library_ms",
                                                "sdpa_only_ms", "bound_ms", "bound_by",
                                                "max_abs_err", "rows_bit_equal_s1")},
              extension=k2_ext,
-             max_abs_err=max(c["max_abs_err"] for c in k2),
+             max_abs_err=max(c["max_abs_err"] for c in k2 + front_k2s),
              timed="one decode step of one layer: B=4, s=1, KV=2, G=7, hd=64, page "
                    "16, n_bt 16 with 1-16 pages allocated per slot at random, bf16",
              **{k: k2_rep[k] for k in ("n_splits", "ms", "plain_ms", "library_ms",
                                        "sdpa_only_ms", "bound_ms", "bound_by")},
-             **k2_sweep, cases=k2),
+             **k2_sweep, cases=k2 + front_k2s),
         dict(name="nm_select", route="cuda", source="src/repro_torch/csrc/nm_select.cu",
              replaces="src/repro/kernels/nm_select.py:38", launches=k3_launches,
              timed="ops.nm_apply over the model's 24 down projections, (24, 896, 4864) "
@@ -3967,6 +4578,22 @@ def main() -> int:
                       f"{v['graphed']['device_step_ms']:.3f} ms a step, idle "
                       f"{v['graphed']['idle_share']:.1%}" for k, v in ms_["runs"].items())
           + f"; {ms_['drops_per_verify']:.2f} drops per verify forward")
+    for label, f in front.items():
+        fb, fs = f["build"], f["serve"]
+        print(f"frontend: {f['name']} {gb(fb['packed_bytes'])} packed vs "
+              f"{gb(fb['dense_bytes'])} dense, peak {gb(f['peak_bytes'])}; layer-0 gyro "
+              f"{fb['prune']['gyro']['wall_s']:.1f} s, retained "
+              f"{fb['prune']['gyro']['mean_retained']:.6f} vs noperm "
+              f"{fb['prune']['noperm']['mean_retained']:.6f}; agree plain "
+              f"{f['agree']['plain'][0]:.2e}, f32 {f['agree']['f32'][0]:.2e}; verify bitwise "
+              f"decode {f['spec_bits']['bit_equal']}; graphed = eager "
+              f"{fs['twins']['identical']}/{fs['twins']['requests']}, spec = plain "
+              f"{fs['spec']['identical']}/{fs['spec']['requests']}; "
+              + "; ".join(f"{k} {m} {ln['decode_tok_s']:.1f} decode tok/s, p50 step "
+                          f"{ln['p50_step_ms']:.2f} ms, p50 TTFT {ln['p50_ttft_ms']:.1f} ms, "
+                          f"device {ln['device_step_ms']:.3f} ms a step, idle "
+                          f"{ln['idle_share']:.1%}"
+                          for k, v in fs["runs"].items() for m, ln in v.items()))
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in SECONDS.items()))
     print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     print(smi)

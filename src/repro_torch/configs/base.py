@@ -28,13 +28,14 @@ ARCH_IDS = (
 )
 PAPER_IDS = ("bert_base", "deit_base")
 PORTED_IDS = ("qwen2_0_5b", "qwen2_5_14b", "codeqwen1_5_7b", "starcoder2_15b", "bert_base",
-              "granite_moe_3b_a800m", "grok_1_314b")
+              "granite_moe_3b_a800m", "grok_1_314b", "phi_3_vision_4_2b", "deit_base",
+              "seamless_m4t_medium")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | moe (the families ported so far)
+    family: str                  # dense | moe | vlm | encdec (ported); hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int

@@ -2,8 +2,8 @@
 
 `params_from_numpy` takes the reference params tree after
 ``jax.tree.map(np.asarray, params)``: a nested dict whose ``blocks`` leaves
-are layer-stacked ``(L, ...)``, possibly with packed leaves whose fields
-are numpy arrays.  Packed leaves are read by duck typing (``vals``,
+(an encoder-decoder's ``enc`` and ``dec`` leaves) are layer-stacked
+``(L, ...)``, possibly with packed leaves whose fields are numpy arrays.  Packed leaves are read by duck typing (``vals``,
 ``vec_idx``, ``nm_idx``, ``n_out``, ``n_in``, ``config.{v,n,m,
 vector_sparsity}``), so the port never imports the reference.  The
 reference's `prune_model` outputs cross the same way: its permuted params
@@ -19,6 +19,7 @@ from repro_torch.core.types import HiNMConfig, PackedHiNM
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import module as M
+from repro_torch.models import encdec
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer
 
@@ -59,38 +60,73 @@ def _norm(node: dict, i, device) -> M.Norm:
                   None if bias is None else to_tensor(pick(bias), device))
 
 
-def params_from_numpy(cfg, tree: dict, device="cuda") -> transformer.Transformer:
+def _attention(node: dict, i: int, device) -> L.Attention:
+    return L.Attention(*(_linear(node[n], i, device) for n in ("wq", "wk", "wv", "wo")))
+
+
+def _mlp(node: dict, i: int, device) -> L.MLP:
+    return L.MLP(**{n: _linear(m, i, device) for n, m in node.items()})
+
+
+def _head(node: dict, device) -> M.Linear:
+    return M.Linear(to_tensor(node["w"], device),
+                    None if node.get("b") is None else to_tensor(node["b"], device))
+
+
+def _encdec_from_numpy(cfg, tree: dict, device) -> encdec.EncDec:
+    enc, dec = tree["enc"], tree["dec"]
+    return encdec.EncDec(
+        _head(tree["frontend_proj"], device),
+        M.Embed(to_tensor(tree["embed"]["table"], device)),
+        [encdec.EncLayer(_norm(enc["ln1"], i, device), _attention(enc["attn"], i, device),
+                         _norm(enc["ln2"], i, device), _mlp(enc["mlp"], i, device))
+         for i in range(encdec.n_enc_layers(cfg))],
+        [encdec.DecLayer(_norm(dec["ln1"], i, device), _attention(dec["attn"], i, device),
+                         _norm(dec["ln_x"], i, device), _attention(dec["xattn"], i, device),
+                         _norm(dec["ln2"], i, device), _mlp(dec["mlp"], i, device))
+         for i in range(cfg.n_layers)],
+        _norm(tree["ln_enc"], None, device), _norm(tree["ln_f"], None, device),
+        _head(tree["lm_head"], device))
+
+
+def params_from_numpy(cfg, tree: dict, device="cuda"):
     """Build the port's model holding the same numbers as `tree`."""
     device = resolve_device(device)
+    if cfg.family == "encdec":
+        return _encdec_from_numpy(cfg, tree, device)
     blk = tree["blocks"]
     blocks = []
     for i in range(cfg.n_layers):
-        a = blk["attn"]
-        attn = L.Attention(*(_linear(a[n], i, device) for n in ("wq", "wk", "wv", "wo")))
+        attn = _attention(blk["attn"], i, device)
         if "moe" in blk:    # the router and the expert stacks, (L, E, ...) leaves
             ffn = dict(moe=MOE.MoE(**{n: _linear(blk["moe"][n], i, device)
                                       for n in ("router", "wg", "wu", "wd")}))
         else:
-            ffn = dict(mlp=L.MLP(**{n: _linear(m, i, device) for n, m in blk["mlp"].items()}))
+            ffn = dict(mlp=_mlp(blk["mlp"], i, device))
         blocks.append(transformer.Block(_norm(blk["ln1"], i, device), attn,
                                         _norm(blk["ln2"], i, device), **ffn))
-    head = tree["lm_head"]
     return transformer.Transformer(
         M.Embed(to_tensor(tree["embed"]["table"], device)),
         blocks,
         _norm(tree["ln_f"], None, device),
-        M.Linear(to_tensor(head["w"], device),
-                 None if head.get("b") is None else to_tensor(head["b"], device)),
+        _head(tree["lm_head"], device),
     )
 
 
-def masks_from_numpy(cfg, tree: dict, device="cuda") -> list[dict[str, torch.Tensor]]:
+def _stack_masks(blk: dict, n: int, device) -> list[dict[str, torch.Tensor]]:
+    return [{f"{grp}/{name}": to_tensor(node["w"][i], device)
+             for grp in ("attn", "xattn", "mlp", "moe") if grp in blk
+             for name, node in blk[grp].items() if node.get("w") is not None}
+            for i in range(n)]
+
+
+def masks_from_numpy(cfg, tree: dict, device="cuda"):
     """The reference's `prune_model` masks (after
     ``jax.tree.map(np.asarray, masks)``) as the port's: one {path:
-    stored-orientation (n_in, n_out) bool mask} dict per block."""
+    stored-orientation (n_in, n_out) bool mask} dict per block; for an
+    encoder-decoder, ``{"enc": [...], "dec": [...]}`` of such lists."""
     device = resolve_device(device)
-    blk = tree["blocks"]
-    return [{f"{grp}/{name}": to_tensor(node["w"][i], device)
-             for grp in ("attn", "mlp", "moe") if grp in blk for name, node in blk[grp].items()
-             if node.get("w") is not None}
-            for i in range(cfg.n_layers)]
+    if cfg.family == "encdec":
+        return {"enc": _stack_masks(tree["enc"], encdec.n_enc_layers(cfg), device),
+                "dec": _stack_masks(tree["dec"], cfg.n_layers, device)}
+    return _stack_masks(tree["blocks"], cfg.n_layers, device)

@@ -132,6 +132,7 @@ def attention(
     backend: str = "auto",
     spec: bool = False,           # multi-token speculative verify write
     variant: str | None = None,   # K1 variant of the packed projections
+    bidirectional: bool = False,  # no causal mask (an encoder; no cache)
 ) -> torch.Tensor:
     """GQA attention with RoPE.  Returns out (B, S, D); a cache, if given,
     is updated in place (its ``pos`` advances by S)."""
@@ -144,7 +145,8 @@ def attention(
     k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = _attn_chunked(q, k, v, positions, positions, True, cfg.window, kv_block)
+        out = _attn_chunked(q, k, v, positions, positions, not bidirectional, cfg.window,
+                            kv_block)
     elif paging.is_paged(cache):
         # Paged pool: the slot's rows live in shared physical pages resolved
         # through its block table.  The s new rows (one at decode, k+1 in a

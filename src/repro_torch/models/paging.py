@@ -236,3 +236,30 @@ def rollback_attn_stripe(cache: dict, pos0: torch.Tensor, keep: torch.Tensor, n:
     kpos.copy_(torch.where(swept[None, :, :smax], KPOS_SENTINEL, kpos))
     cache["pos"][:] = (pos0 + keep).to(torch.int32)[None, :]
     return cache
+
+
+# ---------------------------------------------------------------------------
+# per-slot leaves outside the page pool (an encoder-decoder's cached
+# encoder output and its length)
+# ---------------------------------------------------------------------------
+
+
+def copy_slot_row(dst: torch.Tensor, src: torch.Tensor, slot: int, row: int,
+                  axis: int) -> torch.Tensor:
+    """Copy slot-row ``row`` of striped leaf ``src`` into row ``slot`` of
+    ``dst`` along ``axis``, in place (the generic insert of a leaf that is
+    not paged).  Where ``src`` is narrower than ``dst`` on another axis
+    (a request's encoder output shorter than the pool's ``t_enc``), it
+    lands at the start of that axis and the rest of the row stays as it
+    was, as the reference's `dynamic_update_slice` leaves it."""
+    one = src.narrow(axis, row, 1)
+    region = dst.narrow(axis, slot, 1)
+    region[tuple(slice(0, n) for n in one.shape)].copy_(one.to(dst.dtype))
+    return dst
+
+
+def reset_slot_row(leaf: torch.Tensor, slot: int, axis: int, fill=0) -> torch.Tensor:
+    """Reset one slot row of a striped (not paged) leaf to ``fill``, in
+    place."""
+    leaf.narrow(axis, slot, 1).fill_(fill)
+    return leaf

@@ -1,5 +1,6 @@
 """Decoder-only transformer (port of `repro.models.transformer`): the dense
-family, and the MoE family's backbone (a block's FFN is then `moe.MoE`).
+family, the MoE family's backbone (a block's FFN is then `moe.MoE`) and the
+vlm family's (frontend-stub embeddings placed before the tokens).
 
 One `Block` module per layer in an `nn.ModuleList`, run by a Python loop —
 this replaces the reference's `lax.scan` over layer-stacked params.  The
@@ -100,14 +101,25 @@ def _run_blocks(model, cfg, x, positions, cache=None, backend="auto", spec=False
     return x
 
 
-def forward(model: Transformer, cfg, tokens: torch.Tensor, backend: str = "auto",
-            remat: bool = False):
-    """Training / eval forward: pre-logits (B, S, D) (the loss projects
+def embed_inputs(model: Transformer, cfg, tokens: torch.Tensor,
+                 embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embedding; `embeds` (B, P, D) is the modality-frontend stub
+    (precomputed patch embeddings of a vlm config), cast to the model's
+    dtype and placed before the tokens."""
+    x = M.embed(model.embed, tokens)
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def forward(model: Transformer, cfg, tokens: torch.Tensor, embeds=None,
+            backend: str = "auto", remat: bool = False):
+    """Training / eval forward: pre-logits (B, P + S, D) (the loss projects
     vocab chunked).  `remat` checkpoints each block (non-reentrant
     `torch.utils.checkpoint`): the backward recomputes a block's
     activations instead of keeping them, as the reference remats each layer
     of its scan."""
-    x = M.embed(model.embed, tokens)
+    x = embed_inputs(model, cfg, tokens, embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     if remat:
@@ -200,6 +212,13 @@ def make_cache(cfg, batch: int, max_seq: int, dtype=None, page=None,
     }
 
 
+def cache_batch_axes(cfg, cache) -> dict:
+    """The slot axis of each cache leaf: 1 for the (L, B, ...) stripe and
+    bookkeeping leaves, None for a paged pool's page buffers."""
+    pooled = ("k", "v", "kpos") if paging.is_paged(cache) else ()
+    return {name: None if name in pooled else 1 for name in cache}
+
+
 def page_geometry(cfg, max_seq: int, page: int) -> dict:
     """Paged-pool geometry: the full `max_seq` view is block-allocated."""
     return paging.geometry(max_seq, page)
@@ -231,13 +250,15 @@ def paged_sweep(cfg, pool, page_ids):
     return paging.sweep_pages(pool, page_ids)
 
 
-def prefill(model, cfg, tokens, cache, n_rows=None, backend: str = "auto"):
+def prefill(model, cfg, tokens, cache, embeds=None, n_rows=None, backend: str = "auto"):
     """Fill the stripe cache in place; returns last-token pre-logits (B, D).
 
-    `n_rows` (B,) enables bucketed prefill: rows past a lane's true length
-    are padding whose positions (hence cached `kpos`) are the mask sentinel,
-    and decode resumes at each lane's true length."""
-    x = M.embed(model.embed, tokens)
+    `embeds` (B, P, D) go before the tokens (a vlm's patch rows), so a
+    lane's cache rows are P + its prompt.  `n_rows` (B,) enables bucketed
+    prefill: rows past a lane's true row count (embeds included) are
+    padding whose positions (hence cached `kpos`) are the mask sentinel,
+    and decode resumes at each lane's true row count."""
+    x = embed_inputs(model, cfg, tokens, embeds)
     b, s, _ = x.shape
     ar = torch.arange(s, dtype=torch.int32, device=x.device)
     if n_rows is None:
@@ -276,11 +297,15 @@ def cache_position(cfg, cache) -> torch.Tensor:
     return cache["pos"][0].clone()
 
 
-def _decode_variant(model, b: int, x: torch.Tensor) -> str | None:
-    """The K1 variant a decode step over `b` slots runs, for CUDA tensors
-    of packed weights (None elsewhere: the plain versions take no variant,
-    and a dense weight is a plain matmul)."""
-    w = model.blocks[0].attn.wo.w
+def rewind_cache(cfg, cache) -> None:
+    cache["pos"].zero_()
+
+
+def _decode_variant(w, b: int, x: torch.Tensor) -> str | None:
+    """The K1 variant a decode step over `b` slots runs against the planned
+    weight `w`, for CUDA tensors of packed weights (None elsewhere: the
+    plain versions take no variant, and a dense weight is a plain
+    matmul)."""
     if x.device.type != "cuda" or not isinstance(w, PackedHiNM):
         return None
     from repro_torch.kernels import hinm_spmm
@@ -308,7 +333,7 @@ def verify_step(model, cfg, tokens, cache, backend: str = "auto"):
     positions = (cache["pos"][0][:, None]
                  + torch.arange(s, dtype=torch.int32, device=x.device)[None, :])
     x = _run_blocks(model, cfg, x, positions, cache, backend, spec=True,
-                    variant=_decode_variant(model, b, x))
+                    variant=_decode_variant(model.blocks[0].attn.wo.w, b, x))
     x = L.norm(model.ln_f, x, cfg)
     return logits_fn(model, x), None
 

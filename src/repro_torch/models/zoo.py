@@ -1,11 +1,13 @@
-"""Family dispatch (port of `repro.models.zoo`): the dense and MoE families,
-both run by the transformer module.
+"""Family dispatch (port of `repro.models.zoo`): the dense, MoE and vlm
+families, run by the transformer module, and the encoder-decoder family
+(`encdec`).
 
   init(cfg, generator, device)            -> model
-  forward(model, cfg, tokens, remat=)     -> pre-logits (B, S, D)
+  forward(model, cfg, tokens, embeds=, remat=) -> pre-logits (B, S, D)
   params_of / from_params                 -> the reference's params tree
   logits_fn(model, cfg, x)                -> vocab projection
   make_cache(cfg, batch, max_seq, ...)    -> decode cache
+  cache_batch_axes(cfg, cache)            -> slot axis per cache leaf
   prefill / decode_step                   -> serving
   verify_step / cache_rollback / cache_position -> speculative decoding
   extend_step / paged_map / paged_copy_page / paged_sweep -> prefix sharing
@@ -17,9 +19,9 @@ from __future__ import annotations
 from repro_torch.core import packing
 from repro_torch.core.types import PackedHiNM
 from repro_torch.models import module as M
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
-_FAMILY = {"dense": transformer, "moe": transformer}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer, "encdec": encdec}
 
 
 def model_for(cfg):
@@ -34,8 +36,10 @@ def init(cfg, generator=None, device="cuda"):
     return model_for(cfg).init(cfg, generator, device)
 
 
-def forward(model, cfg, tokens, backend: str = "auto", remat: bool = False):
-    return model_for(cfg).forward(model, cfg, tokens, backend, remat)
+def forward(model, cfg, tokens, embeds=None, backend: str = "auto", remat: bool = False):
+    """`embeds` (B, P, D): a vlm's patch rows before the tokens, or an
+    encoder-decoder's frames (required there)."""
+    return model_for(cfg).forward(model, cfg, tokens, embeds, backend, remat)
 
 
 def params_of(cfg, model) -> dict:
@@ -54,11 +58,21 @@ def logits_fn(model, cfg, x):
 
 
 def make_cache(cfg, batch: int, max_seq: int, dtype=None, **kw):
+    """`kw`: ``page``/``n_pages`` (a paged pool), ``device``, and for an
+    encoder-decoder ``t_enc`` (the encoder output's width a slot keeps)."""
     return model_for(cfg).make_cache(cfg, batch, max_seq, dtype=dtype, **kw)
 
 
-def prefill(model, cfg, tokens, cache, n_rows=None, backend: str = "auto"):
-    return model_for(cfg).prefill(model, cfg, tokens, cache, n_rows, backend)
+def cache_batch_axes(cfg, cache) -> dict:
+    """The slot axis of each cache leaf (None for a paged pool's page
+    buffers): the slot pool inserts and resets stripe slots with it."""
+    return model_for(cfg).cache_batch_axes(cfg, cache)
+
+
+def prefill(model, cfg, tokens, cache, embeds=None, n_rows=None, backend: str = "auto"):
+    """Fill a stripe cache in place; returns last-token pre-logits.  `n_rows`
+    (B,) counts each lane's cache rows (a vlm's embeds rows included)."""
+    return model_for(cfg).prefill(model, cfg, tokens, cache, embeds, n_rows, backend)
 
 
 def decode_step(model, cfg, tokens, cache, backend: str = "auto"):
@@ -92,6 +106,12 @@ def cache_rollback(cfg, cache, undo, pos0, keep, n_written):
     `n_written` speculative rows per slot and rewind the position counters
     to `pos0 + keep`."""
     return model_for(cfg).cache_rollback(cfg, cache, undo, pos0, keep, n_written)
+
+
+def rewind_cache(cfg, cache) -> None:
+    """Set a reused stripe template's write position back to 0, in place
+    (prefill writes its rows from there)."""
+    model_for(cfg).rewind_cache(cfg, cache)
 
 
 def cache_position(cfg, cache):

@@ -347,7 +347,8 @@ class ModelPermEngine:
         layers in turn (and an expert stack's experts within each, the
         reference's flattened leading dims) with the node's own generator;
         items run on the thread pool.  Returns one {path: stored-orientation
-        mask} dict per block (an expert stack's (E, n_in, n_out)); the
+        mask} dict per block (an expert stack's (E, n_in, n_out)), one list
+        a layer stack (``{"enc": [...], "dec": [...]}`` where two); the
         report keeps each search's row permutation (an expert stack's
         stacked), under which the mask has the HiNM structure."""
         instances = list(self.graph.instances())
@@ -383,10 +384,11 @@ class ModelPermEngine:
             with ThreadPoolExecutor(max_workers=self.workers) as ex:
                 results = list(ex.map(one_instance, work))
 
-        masks: list[dict[str, torch.Tensor]] = [{} for _ in results[0]]
+        masks: dict[str, list[dict[str, torch.Tensor]]] = {}
         for ((key, node), _), outs in zip(work, results):
+            per_layer = masks.setdefault(key, [{} for _ in outs])
             for i, (mask, _, perm) in enumerate(outs):
-                masks[i][node.path] = mask
+                per_layer[i][node.path] = mask
                 self.report.out_perms[f"{key}[{i}]/{node.path}"] = perm
             self.report.per_layer.append(
                 (f"{key}/{node.path}", float(np.mean([r for _, r, _ in outs]))))
@@ -396,4 +398,4 @@ class ModelPermEngine:
         else:
             self.report.searches_run += len(work)
         self.report.phase_seconds["search"] = time.perf_counter() - t0
-        return masks
+        return masks["blocks"] if list(masks) == ["blocks"] else masks

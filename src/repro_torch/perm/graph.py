@@ -210,8 +210,11 @@ def compile_model_graph(cfg) -> ModelPermGraph:
     from repro_torch.models import zoo
 
     plan = zoo.hinm_plan(cfg)
+    if isinstance(plan, dict) and "enc" in plan:
+        return ModelPermGraph([Container(k, k, compile_layer_graph(plan[k]))
+                               for k in ("enc", "dec")])
     if isinstance(plan, dict):
         raise NotImplementedError(
-            f"{cfg.name}: only the decoder-only layer plan is ported; see "
-            "ROADMAP.md Queue 1 item 8")
+            f"{cfg.name}: per-pattern-position stacks are not ported yet; see "
+            "ROADMAP.md Queue 1 item 8 (hybrid)")
     return ModelPermGraph([Container("blocks", "blocks", compile_layer_graph(plan))])

@@ -8,6 +8,8 @@ width B.  `temperature`, `top_k` and `top_p` apply to every prompt (0 =
 greedy); `spec` turns on speculative decoding (`serve/spec`);
 `prefix_share`, `prefill_chunk` and `telemetry` go to the scheduler as
 they are.
+`generate(..., embeds=)` gives each prompt its frontend-stub rows: a vlm's
+patch embeddings or an encoder-decoder's frames, (B, P, D).
 """
 from __future__ import annotations
 
@@ -58,14 +60,15 @@ class ServeEngine:
         return self._sched
 
     def generate(self, prompts: np.ndarray,          # (B, S_prompt) int32
-                 max_new_tokens: int = 32,
+                 max_new_tokens: int = 32, embeds: np.ndarray | None = None,
                  rng_seed: int = 0) -> tuple[np.ndarray, ServeStats]:
         b = prompts.shape[0]
         sched = self._scheduler(b, rng_seed)
         reqs = [Request(rid=i, prompt=np.asarray(prompts[i], np.int32),
                         params=SamplingParams(max_new_tokens=max_new_tokens,
                                               temperature=self.temperature,
-                                              top_k=self.top_k, top_p=self.top_p))
+                                              top_k=self.top_k, top_p=self.top_p),
+                        embeds=None if embeds is None else np.asarray(embeds[i]))
                 for i in range(b)]
         sched.run(reqs)
         # EOS-terminated rows are zero-padded to the fixed output width

@@ -41,8 +41,7 @@ def requests_from_record(record) -> list[Request]:
         if d.get("embeds"):
             raise ValueError(
                 f"request {d['rid']}: embeds requests cannot be rebuilt "
-                "from a flight record (modality tensors are not recorded, and "
-                "the port serves no modality frontend)")
+                "from a flight record (modality tensors are not recorded)")
         params = SamplingParams(
             max_new_tokens=d["max_new"], temperature=d["temperature"],
             top_k=d["top_k"], top_p=d["top_p"], eos_id=d["eos"],

@@ -1,6 +1,10 @@
 """Captured CUDA graphs of the serving runtime: the port's counterpart of
 the reference scheduler's jitted programs (`Scheduler._build`).
 
+The scheduler keys each program by the reference's static arguments: a
+prefill by (bucket, width, `stochastic`, embeds shape), so a vlm's patch
+rows or an encoder-decoder's frames of one shape share one graph.
+
 A body is a closure without arguments that reads and writes only tensors
 whose storage stays put (the scheduler's per-slot state, the KV pool,
 static input and output buffers); every tensor it allocates dies with

@@ -24,6 +24,10 @@ provisions full stripe capacity.
 
 Stripe mode (``page=None``): each lane pins a full ``max_seq`` stripe.
 
+``cache_kw`` goes to `zoo.make_cache` as it is: an encoder-decoder's
+``t_enc``, the encoder-output width every slot keeps beside its decoder
+rows (leaves outside the page pool, inserted and reset per slot).
+
 The pool is updated in place where the reference donated its buffers,
 and `reset_all` fills the same storage: the scheduler's captured CUDA
 graphs hold the leaves' addresses.  Host-built tables reach the device
@@ -52,6 +56,7 @@ import collections
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.device import to_device
 from repro_torch.models import paging, zoo
 
@@ -59,11 +64,19 @@ from repro_torch.models import paging, zoo
 _PRISTINE = {"kpos": paging.KPOS_SENTINEL, "bt": paging.SENTINEL_PAGE}
 
 
+def _fill_pristine(cache: dict) -> None:
+    for name, leaf in cache.items():
+        if isinstance(leaf, dict):
+            _fill_pristine(leaf)
+        else:
+            leaf.fill_(_PRISTINE.get(name, 0))
+
+
 class SlotKVCache:
     def __init__(self, cfg, n_slots: int, max_seq: int, dtype=None,
                  page: int | None = None, n_pages: int | str | None = None,
                  device="cuda", metrics=None, metrics_labels=None, flight=None,
-                 flight_label: str | None = None):
+                 flight_label: str | None = None, **cache_kw):
         self._flight = flight
         self._flight_pool = flight_label
         self._m_slots = self._m_free_pages = self._m_used_pages = None
@@ -72,7 +85,7 @@ class SlotKVCache:
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.device = torch.device(device)
-        self._cache_kw = dict(dtype=dtype, device=self.device)
+        self._cache_kw = dict(cache_kw, dtype=dtype, device=self.device)
         geom = zoo.page_geometry(cfg, max_seq, page) if page else None
         self.paged = geom is not None
         if self.paged:
@@ -243,7 +256,7 @@ class SlotKVCache:
 
     def pool_bytes(self) -> int:
         """Device bytes held by the pool cache."""
-        return sum(t.numel() * t.element_size() for t in self.cache.values())
+        return sum(t.numel() * t.element_size() for t in T.leaves(self.cache))
 
     # -- slot lifecycle -------------------------------------------------------
 
@@ -281,8 +294,7 @@ class SlotKVCache:
                              to_device(torch.from_numpy(bt_row), self.device), n_alloc)
             self._slot_pages[slot] = pages
         else:
-            for name, leaf in self.cache.items():
-                leaf[:, slot] = cache[name][:, row].to(leaf.dtype)
+            self._copy_rows(cache, slot, row)
         self._emit("kv_insert", slot=slot, rows=length, reserve=reserve,
                    pages=([int(p) for p in self._slot_pages[slot]] if self.paged else []))
         self._slot_cap[slot] = reserve
@@ -363,14 +375,19 @@ class SlotKVCache:
             self._emit("kv_release", slot=slot, pages=[int(p) for p in pages],
                        freed=[int(p) for p in freed])
         else:
-            pristine = self.template(1)
-            for name, leaf in self.cache.items():
-                leaf[:, slot] = pristine[name][:, 0]
+            self._copy_rows(self.template(1), slot, 0)
             self._emit("kv_release", slot=slot, pages=[], freed=[])
         self.slot_len[slot] = 0
         self._slot_cap[slot] = 0
         self._free.append(slot)
         self._observe_occupancy()
+
+    def _copy_rows(self, src: dict, slot: int, row: int) -> None:
+        """Stripe mode: every leaf's row `row` of the stripe cache `src`
+        into slot `slot`, along each leaf's slot axis."""
+        axes = zoo.cache_batch_axes(self.cfg, self.cache)
+        for leaf, one, axis in zip(T.leaves(self.cache), T.leaves(src), T.leaves(axes)):
+            paging.copy_slot_row(leaf, one, slot, row, axis)
 
     def rollback(self, pos0, keep, n_written: int, undo=None) -> None:
         """Speculative commit/rollback, in place: of the ``n_written`` rows a
@@ -406,8 +423,7 @@ class SlotKVCache:
             self.cache = zoo.make_cache(self.cfg, self.n_slots, self.max_seq, **kw,
                                         **self._cache_kw)
         else:
-            for name, leaf in self.cache.items():
-                leaf.fill_(_PRISTINE.get(name, 0))
+            _fill_pristine(self.cache)
         if self.paged:
             self._free_pages = collections.deque(range(paging.N_RESERVED, self.n_pages))
             self._page_ref[:] = 0

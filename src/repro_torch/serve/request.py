@@ -54,6 +54,10 @@ class Request:
     rid: int
     prompt: np.ndarray                      # (S,) int32
     params: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    # (P, D) modality-frontend stub: a vlm's patch rows (placed before the
+    # prompt, P more decoder rows) or an encoder-decoder's frames (the
+    # encoder's input, P <= the pool's t_enc)
+    embeds: np.ndarray | None = None
     arrival: int = 0                        # scheduler step it becomes visible
 
     state: RequestState = RequestState.QUEUED

@@ -78,6 +78,14 @@ from host state, for replay and first-divergence diffs.  Neither adds a
 sync, and nothing of theirs runs inside a captured body: a body runs only
 when its program is built, so per-step instruments sit around the replay.
 
+Frontend-stub requests (`Request.embeds`, (P, D)): a vlm's patch rows go
+before the prompt and count as cache rows (bucket, page budget,
+`max_seq`); an encoder-decoder's frames feed its encoder, whose output
+each slot keeps at the pool's `t_enc` (`cache_kw={"t_enc": ...}`).
+Admission groups by (bucket, embeds shape), one prefill program per
+(bucket, width, stochastic, embeds shape); embeds requests never take the
+extension path nor register in the prefix index.
+
 What waits for later slices: multi-device meshes.
 """
 from __future__ import annotations
@@ -89,6 +97,7 @@ import numpy as np
 import torch
 
 from repro_torch import perf_knobs
+from repro_torch import tree as T
 from repro_torch.core.types import PackedHiNM
 from repro_torch.device import resolve_device, to_device
 from repro_torch.models import zoo
@@ -124,7 +133,7 @@ class Scheduler:
                  spec: spec_mod.SpecConfig | None = None, packed: str = "auto",
                  prefix_share: bool | str = "auto", prefill_chunk: int | None = None,
                  async_admission: bool | str = "auto", device="cuda", telemetry=None,
-                 flightrec=None):
+                 flightrec=None, cache_kw: dict | None = None):
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown admission policy {policy!r}")
         if async_admission == "auto":
@@ -191,7 +200,12 @@ class Scheduler:
         if spec is not None:
             self._check_spec(spec, rng_seed)
         self.kv = SlotKVCache(cfg, max_slots, max_seq, page=page, n_pages=n_pages,
-                              device=self.device, metrics=m, flight=self.flight)
+                              device=self.device, metrics=m, flight=self.flight,
+                              **(cache_kw or {}))
+        # an encoder-decoder's pool keeps each slot's encoder output at the
+        # fixed width t_enc (`cache_kw={"t_enc": ...}` sizes it to the
+        # workload's frames)
+        self._t_enc = (cache_kw or {}).get("t_enc") or max_seq
         # paged-attention backend, resolved once per scheduler; every
         # program runs under it (`_program`).  A stripe pool never reaches
         # the K2 path
@@ -240,7 +254,7 @@ class Scheduler:
         self._pending_pages = 0
         self._chunk_in_flight = False
         self.graphs = GraphCache(self.device, on_build=self._on_build)
-        self._prefill_io: dict[tuple[int, int], dict] = {}
+        self._prefill_io: dict[tuple, dict] = {}
         self._queue: collections.deque[Request] = collections.deque()
         self._running: dict[int, Request] = {}
         self._active_host = np.zeros((max_slots,), bool)
@@ -408,20 +422,30 @@ class Scheduler:
         return (len(self._queue) + len(self._prefilling) + len(self._running)
                 + sum(len(rec[0]) for rec in self._pending_admits))
 
+    def _cache_rows(self, req: Request) -> int:
+        """Decoder-cache rows this request's prefill fills: a vlm's embeds
+        rows go before the prompt's; an encoder-decoder's frames feed the
+        encoder (kept apart, in the slot's enc_out) and count for none."""
+        extra = 0
+        if req.embeds is not None and self.cfg.family != "encdec":
+            extra = req.embeds.shape[0]
+        return len(req.prompt) + extra
+
     def _reserve_rows(self, req: Request) -> int:
         """Cache rows this request may legally grow to (page budget)."""
-        return len(req.prompt) + req.params.max_new_tokens
+        return self._cache_rows(req) + req.params.max_new_tokens
 
-    def _bucket_len(self, n_tokens: int) -> int:
-        """Power-of-two prompt-length bucket (from 8), clamped to the prefill
-        stripe."""
+    def _bucket_len(self, n_tokens: int, extra: int = 0) -> int:
+        """Power-of-two prompt-length bucket (from 8), clamped so the bucket
+        plus `extra` rows that are not tokens (a vlm's embeds) still fit the
+        prefill stripe."""
         b = 8
         while b < n_tokens:
             b *= 2
-        return max(n_tokens, min(b, self.max_seq))
+        return max(n_tokens, min(b, self.max_seq - extra))
 
     def submit(self, req: Request) -> None:
-        rows = len(req.prompt)
+        rows = self._cache_rows(req)
         if rows + req.params.max_new_tokens > self.max_seq:
             raise ValueError(
                 f"request {req.rid}: {rows} prompt rows + max_new_tokens "
@@ -430,6 +454,10 @@ class Scheduler:
                 > self.kv.n_alloc_pages):
             raise ValueError(f"request {req.rid}: needs more KV pages than the "
                              "pool allocates — raise n_pages")
+        if (self.cfg.family == "encdec" and req.embeds is not None
+                and req.embeds.shape[0] > self._t_enc):
+            raise ValueError(f"request {req.rid}: {req.embeds.shape[0]} encoder frames "
+                             f"exceed the pool's t_enc {self._t_enc}")
         if req.params.spec_accept not in ("match", "reject"):
             raise ValueError(f"request {req.rid}: unknown spec_accept "
                              f"{req.params.spec_accept!r}")
@@ -446,7 +474,7 @@ class Scheduler:
                 arrival=req.arrival, max_new=p.max_new_tokens,
                 temperature=float(p.temperature), top_k=int(p.top_k), top_p=float(p.top_p),
                 eos=p.eos_id, seed=p.seed, spec_k=p.spec_k, spec_accept=p.spec_accept,
-                embeds=False)
+                embeds=req.embeds is not None)
 
     def _eff_eos(self, req: Request) -> int:
         if req.params.eos_id is not None:
@@ -495,8 +523,11 @@ class Scheduler:
         request.  A request extends in the pool (pages mapped first, suffix
         prefilled through `zoo.extend_step`) when its prompt hits the prefix
         index (a stripe-scatter insert would overwrite co-owned rows) or
-        when chunking is on and the prompt exceeds one chunk.  Misses and
-        short prompts take the bucketed group prefill."""
+        when chunking is on and the prompt exceeds one chunk.  Embeds
+        requests, misses and short prompts take the bucketed group
+        prefill."""
+        if req.embeds is not None:
+            return False, None
         m = None
         if self.prefix is not None:
             # always leave >= 1 row to prefill: the first sampled token
@@ -537,10 +568,13 @@ class Scheduler:
                 self._start_extension(self._queue.popleft(), m)
                 continue
 
-            # group the queue head by prompt-length bucket: one batched
-            # prefill per group (one graph per bucket and width)
+            # group the queue head by (prompt-length bucket, embeds shape):
+            # one batched prefill per group (one graph per bucket, width and
+            # embeds shape)
             def sig(r):
-                return self._bucket_len(len(r.prompt))
+                n = len(r.prompt)
+                return (self._bucket_len(n, self._cache_rows(r) - n),
+                        None if r.embeds is None else r.embeds.shape)
 
             head_reserve = self._reserve_rows(self._queue[0])
             if self.kv.paged:
@@ -563,20 +597,26 @@ class Scheduler:
                 group.append(self._queue.popleft())
             self._admit_group(group, finished)
 
-    def _prefill_buffers(self, s_b: int, k_b: int) -> dict:
+    def _prefill_buffers(self, s_b: int, k_b: int, eshape=None) -> dict:
         """The static inputs, stripe template (and the draft model's) and
-        first-token output of the prefill graphs of one (bucket, width)."""
-        io = self._prefill_io.get((s_b, k_b))
+        first-token output of the prefill graphs of one (bucket, width,
+        embeds shape)."""
+        key = (s_b, k_b, eshape)
+        io = self._prefill_io.get(key)
         if io is None:
             def vec(dtype, *shape):
                 return torch.zeros(shape or (k_b,), dtype=dtype, device=self.device)
 
-            io = self._prefill_io[(s_b, k_b)] = {
+            io = self._prefill_io[key] = {
                 "tokens": vec(torch.int32, k_b, s_b), "n_rows": vec(torch.int32),
                 "seeds": vec(torch.int64), "temp": vec(torch.float32),
                 "topk": vec(torch.int32), "topp": vec(torch.float32),
                 "first": vec(torch.int32), "cache": self.kv.template(k_b)}
+            if eshape is not None:
+                io["embeds"] = vec(torch.float32, k_b, *eshape)
             if self.draft_kv is not None:
+                # the draft model's rows: the prompt's alone
+                io["d_rows"] = vec(torch.int32)
                 io["draft_cache"] = self.draft_kv.template(k_b)
         return io
 
@@ -585,9 +625,9 @@ class Scheduler:
         row's first token (token index 0 of its stream)."""
         def body():
             cache = io["cache"]
-            cache["pos"].zero_()    # the write offset of a pristine template
+            zoo.rewind_cache(self.cfg, cache)    # a pristine template's offset
             last = zoo.prefill(self.params, self.cfg, io["tokens"], cache,
-                               n_rows=io["n_rows"])
+                               embeds=io.get("embeds"), n_rows=io["n_rows"])
             logits = zoo.logits_fn(self.params, self.cfg, last)[:, : self._vocab].float()
             if stochastic:
                 keys = sampler.fold_keys(self._key, io["seeds"],
@@ -600,12 +640,12 @@ class Scheduler:
 
     def _draft_prefill_body(self, io: dict):
         """Prefill `io`'s tokens into its draft stripe template (the draft
-        model's own rows of the same prompts)."""
+        model's own rows of the same prompts; a frontend is the target's)."""
         def body():
             cache = io["draft_cache"]
-            cache["pos"].zero_()
+            zoo.rewind_cache(self.drafter.cfg, cache)
             zoo.prefill(self.drafter.params, self.drafter.cfg, io["tokens"], cache,
-                        n_rows=io["n_rows"])
+                        n_rows=io["d_rows"])
         return body
 
     def _admit_group(self, group: list[Request], finished: list[Request]) -> None:
@@ -622,7 +662,8 @@ class Scheduler:
         # pad every prompt to the group's shared length bucket and the group
         # itself to a power-of-two width; padded rows/lanes are
         # sentinel-masked and discarded
-        s_b = self._bucket_len(len(group[0].prompt))
+        n0 = len(group[0].prompt)
+        s_b = self._bucket_len(n0, self._cache_rows(group[0]) - n0)
         k_b = 1
         while k_b < k:
             k_b *= 2
@@ -630,8 +671,13 @@ class Scheduler:
         padded = [group[min(i, k - 1)] for i in range(k_b)]
         for i, r in enumerate(padded):
             tokens[i, : len(r.prompt)] = r.prompt
-        io = self._prefill_buffers(s_b, k_b)
-        staged = {"tokens": tokens, "n_rows": [len(r.prompt) for r in padded]}
+        eshape = None if group[0].embeds is None else tuple(group[0].embeds.shape)
+        io = self._prefill_buffers(s_b, k_b, eshape)
+        staged = {"tokens": tokens, "n_rows": [self._cache_rows(r) for r in padded]}
+        if eshape is not None:
+            staged["embeds"] = np.stack([r.embeds for r in padded])
+        if self.draft_kv is not None:
+            staged["d_rows"] = [len(r.prompt) for r in padded]
         stochastic = any(r.params.temperature > 0 for r in group)
         if stochastic:
             staged.update(seeds=[self._eff_seed(r) & prng.M32 for r in padded],
@@ -639,9 +685,11 @@ class Scheduler:
                           topk=[r.params.top_k for r in padded],
                           topp=[r.params.top_p for r in padded])
         for name, vals in staged.items():
-            io[name].copy_(to_device(torch.tensor(vals, dtype=io[name].dtype), self.device))
+            io[name].copy_(to_device(torch.as_tensor(np.asarray(vals), dtype=io[name].dtype),
+                                     self.device))
         with self.telemetry.annotation("serve_prefill"):
-            self._program(("prefill", s_b, k_b, stochastic), self._prefill_body(io, stochastic))
+            self._program(("prefill", s_b, k_b, stochastic, eshape),
+                          self._prefill_body(io, stochastic))
         first = self._fetch(io["first"])
         if self.draft_kv is not None:
             # the draft model prefills the same prompts into its own pool
@@ -649,7 +697,7 @@ class Scheduler:
         t1 = time.perf_counter()
         cache_k = io["cache"]
         draft_cache_k = io.get("draft_cache")
-        self.stats.prefill_rows += sum(len(r.prompt) for r in group)
+        self.stats.prefill_rows += sum(self._cache_rows(r) for r in group)
         if self.telemetry.enabled:
             tr = self.telemetry.tracer
             self.telemetry.registry.histogram(
@@ -671,9 +719,9 @@ class Scheduler:
             # width may replay the same graph before this one commits, so
             # the group keeps its own copy of the stripe (its first tokens
             # are already on their way to the host)
-            cache_k = {name: leaf.clone() for name, leaf in cache_k.items()}
+            cache_k = T.map(torch.clone, cache_k)
             if draft_cache_k is not None:
-                draft_cache_k = {name: leaf.clone() for name, leaf in draft_cache_k.items()}
+                draft_cache_k = T.map(torch.clone, draft_cache_k)
             self._pending_admits.append((group, first, cache_k, draft_cache_k))
             self._pending_slots += k
             if self.kv.paged:
@@ -719,9 +767,9 @@ class Scheduler:
                 self._finish(req, finished)
                 continue
             slot = self.kv.acquire()
-            self.kv.insert(slot, cache_k, len(req.prompt), row=row,
+            self.kv.insert(slot, cache_k, self._cache_rows(req), row=row,
                            reserve=self._reserve_rows(req))
-            if self.prefix is not None:
+            if self.prefix is not None and req.embeds is None:
                 # index this prompt's full pages (retention references): the
                 # next identical prefix maps them instead of recomputing them
                 self.prefix.register(req.prompt, self.kv.slot_pages(slot), self.kv)
@@ -937,7 +985,7 @@ class Scheduler:
             tokens = np.zeros((1, s_b), np.int32)
             tokens[0, :n] = req.prompt
             io["tokens"].copy_(to_device(torch.from_numpy(tokens), self.device))
-            io["n_rows"].fill_(n)
+            io["d_rows"].fill_(n)
             self._program(("draft_prefill", s_b, 1), self._draft_prefill_body(io))
             self.draft_kv.insert(slot, io["draft_cache"], n, row=0,
                                  reserve=n + p.max_new_tokens)

@@ -48,10 +48,11 @@ def prune_model(
     Returns ``(permuted, masks, packed, report)``: a copy of the model with
     every permutation folded into its dense weights; ``masks[i][path]``,
     the stored-orientation (n_in, n_out) keep-mask of block i's projection
-    `path`, aligned with `permuted`; a second copy whose planned
-    projections hold their `PackedHiNM` (rows in OCP order, `vec_idx` in
-    ICP order), ready to serve through ``hinm_spmm``; and the
-    `PruneReport`.
+    `path`, aligned with `permuted` (an encoder-decoder's masks are
+    ``{"enc": [...], "dec": [...]}``, one such list a stack); a second
+    copy whose planned projections hold their `PackedHiNM` (rows in OCP
+    order, `vec_idx` in ICP order), ready to serve through ``hinm_spmm``;
+    and the `PruneReport`.
 
     `fisher` (second-order saliency) is one {path: stored-orientation
     Fisher diagonal} dict per block.  `cache` (a PermCache) skips searches
@@ -81,23 +82,36 @@ def prune_model(
     results = engine.run_stacks(stacked)
 
     packed = copy.deepcopy(permuted)
-    masks = None
+    masks = {}
     for ci, c in enumerate(engine.graph.containers):
-        masks, packs = results[ci]
+        masks[c.key], packs = results[ci]
         for blk, layer_packs in zip(getattr(packed, c.key), packs):
             for path, p in layer_packs.items():
                 nn.get_path(blk, path).set_weight(p)
-    return permuted, masks, packed, engine.report
+    return permuted, _unstack(masks), packed, engine.report
+
+
+def _by_stack(masks) -> dict:
+    """Per-layer masks keyed by the layer stack they belong to: a
+    decoder-only model's list is its ``blocks``' (the inverse of
+    `_unstack`)."""
+    return masks if isinstance(masks, dict) else {"blocks": masks}
+
+
+def _unstack(masks: dict):
+    """`_by_stack`'s inverse: a lone ``blocks`` stack's list as it is."""
+    return masks["blocks"] if list(masks) == ["blocks"] else masks
 
 
 def apply_masks(model, masks):
     """A copy of `model` with each masked projection's weight multiplied by
     its mask (masked-dense training and the packed model's dense twin)."""
     out = copy.deepcopy(model)
-    for blk, layer_masks in zip(out.blocks, masks):
-        for path, m in layer_masks.items():
-            lin = nn.get_path(blk, path)
-            lin.set_weight(lin.w * m.to(lin.w.dtype))
+    for key, per_layer in _by_stack(masks).items():
+        for blk, layer_masks in zip(getattr(out, key), per_layer):
+            for path, m in layer_masks.items():
+                lin = nn.get_path(blk, path)
+                lin.set_weight(lin.w * m.to(lin.w.dtype))
     return out
 
 
@@ -110,20 +124,21 @@ def get_node(tree: dict, key: str, path: str) -> dict:
     return node
 
 
-def mask_tree(params: dict, masks: list[dict]) -> dict:
+def mask_tree(params: dict, masks) -> dict:
     """Per-block masks (``masks[i][path]``, as `prune_model` returns them)
     as the training state's mask tree: each projection's masks stacked
     over layers at its weight's place in `params`, ``None`` elsewhere."""
     tree = T.map(lambda _: None, params)
-    for path in masks[0]:
-        get_node(tree, "blocks", path)["w"] = torch.stack([m[path] for m in masks])
+    for key, per_layer in _by_stack(masks).items():
+        for path in per_layer[0]:
+            get_node(tree, key, path)["w"] = torch.stack([m[path] for m in per_layer])
     return tree
 
 
-def per_block(tree: dict, paths) -> list[dict]:
-    """The inverse view: ``[{path: leaf[i]}]`` per block for the planned
-    `paths` of a params-shaped tree (a Fisher diagonal for `prune_model`,
-    a mask tree for `apply_masks`)."""
-    stacks = {p: get_node(tree, "blocks", p)["w"] for p in paths}
+def per_block(tree: dict, paths, key: str = "blocks") -> list[dict]:
+    """The inverse view: ``[{path: leaf[i]}]`` per layer of stack `key` for
+    the planned `paths` of a params-shaped tree (a Fisher diagonal for
+    `prune_model`, a mask tree for `apply_masks`)."""
+    stacks = {p: get_node(tree, key, p)["w"] for p in paths}
     n = len(next(iter(stacks.values())))
     return [{p: s[i] for p, s in stacks.items()} for i in range(n)]

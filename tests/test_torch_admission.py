@@ -137,7 +137,7 @@ def test_same_prefill_key_twice_in_one_window(setup):
             assert [[r.rid for r in rec[0]] for rec in pending] == [[1], [2], [3]]
             assert sched._pending_slots == 3 and sched.n_pending == 4
             # A and C: one (bucket, width) key, each with a stripe of its own
-            io = sched._prefill_io[(8, 1)]
+            io = sched._prefill_io[(8, 1, None)]
             a, c = pending[0][2], pending[2][2]
             for name in io["cache"]:
                 ptrs = {a[name].data_ptr(), c[name].data_ptr(), io["cache"][name].data_ptr()}

@@ -70,7 +70,9 @@ def test_config_equals_reference(name, reduced):
 
 
 def test_load_arch_loads_ported_and_refuses_the_rest():
-    assert set(base.PORTED_IDS) == {"qwen2_0_5b", *NEW, *MOE}
+    # the vlm and encdec configs: tests/test_torch_vlm.py
+    assert set(base.PORTED_IDS) == {"qwen2_0_5b", *NEW, *MOE, "phi_3_vision_4_2b",
+                                    "deit_base", "seamless_m4t_medium"}
     assert base.load_arch("qwen2_5_14b").draft_arch == "qwen2_0_5b"
     for name in set(base.ARCH_IDS + base.PAPER_IDS) - set(base.PORTED_IDS):
         with pytest.raises(KeyError, match="ROADMAP.md"):
