@@ -26,7 +26,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                noperm - 5e-3), every searched permutation re-checked
                against its constraints, and hinm_spmm held on gyro-pruned
                projections (permuted vec_idx).  It also starts phase 11's
-               layer-0 gyro searches in a child process.
+               layer-0 gyro searches in a child process, and the entry
+               points' subprocesses (phases 6 and 10 check them) on a
+               thread.
   5. serve   — the gyro-pruned, packed model served by `Scheduler` over the
                paged KV pool, whose decode chunk, spec cycles and prefills
                run as captured CUDA graphs under double-buffered admission:
@@ -74,7 +76,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                graphed and as the eager twin, top device ops per step; and
                examples/serve_hinm_torch.py as a subprocess at its defaults
                with --compare-dense, recording (exit 0, identical: True),
-               then replaying the record (exit 0, replay OK).
+               then replaying the record (exit 0, replay OK), both run
+               beside phase 4.
   7. agree   — teacher-forced prefill + 4 paged decode steps with the
                kernels, with the plain versions and with the masked-dense
                twin (torch.matmul): logits must agree.
@@ -128,7 +131,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                full width cut to 1 layer, gyro (the virtual refresh) and
                noperm: densities on schedule, the refresh's time, PermCache
                hits, the masks' HiNM structure, recovery gaps; and
-               examples/train_hinm_lm_torch.py --steps 40 as a subprocess.
+               examples/train_hinm_lm_torch.py --steps 40 as a subprocess
+               (run beside phase 4).
  11. frontend — the frontend-stub families at full width, inited on the
                card (seeded), frontend rows seeded N(0, 1): phi-3-vision-4.2b
                (32 layers, d 3072, 32/32 heads, hd 96, d_ff 8192; 576
@@ -155,6 +159,25 @@ Phases (each prints its own lines; any failure exits non-zero):
                a step; seamless 120 K1 a step, 192 a group, 12 K2), and
                SpecConfig(k=3) fused: streams equal or parted at a near
                tie.  Phase 8's norm rows cover their d_model 3072 and 1024.
+ 12. ssm     — xlstm-125m at full width (12 layers, mLSTM/sLSTM, d 768, 4
+               heads of state width 192, vocab 50,304, LayerNorm, bf16),
+               inited on the card (seeded): the first period (layer 0 of
+               each pattern-position stack) gyro-pruned by `prune_model`
+               (MOE_PRUNE_ITERS), then noperm (retained gyro >= noperm -
+               5e-3, every permutation checked), the rest packed noperm;
+               K1 on the 5 planned projections of each block kind at B 4
+               and at one exact prefill group's rows (2 x 37), held and
+               timed beside torch.matmul and the bound; prefill + 4 decode
+               steps against the plain versions and a float32 twin;
+               Scheduler(max_slots=4, max_seq=256, page=16,
+               decode_chunk=8) on stripes (the page falls back): 8 greedy
+               requests of 4 distinct prompt lengths (16-128, two
+               arriving a step, so exact-length groups of two form) and 2
+               sampled ones, 32 new tokens each, graphed and eager, streams
+               equal; 60 K1 and 0 K2 a decode step and 60 K1 an admission
+               group asserted; the prefill graphs keyed by exact length,
+               each prefill length's eager, capture and replay times;
+               SpecConfig(k=3) and bucket=True refused.
 Each phase prints its seconds.  The line before the last holds the
 per-kernel JSON; the last line is {"ok": true, "device": {...}}.
 """
@@ -881,9 +904,10 @@ def full_model():
 # the reference's bound for gyro against noperm (tests/test_prune_model.py:84)
 GYRO_MARGIN = 5e-3
 # (ocp_iters, icp_iters) of the prune phase, cut from prune_model's 8/8,
-# whose full-width search took up to 10.6 minutes on the H100 (PERF.md);
-# width and depth stay full
-PRUNE_ITERS = (4, 4)
+# whose full-width search took up to 10.6 minutes on the H100 (PERF.md),
+# then from 4/4 (295-455 s) to the other phases' 2/2 to keep the whole
+# script within its time limit on a slow host; width and depth stay full
+PRUNE_ITERS = (2, 2)
 
 
 def nm_apply_path(model):
@@ -920,9 +944,15 @@ def check_perms(cfg, report):
     for what, perm in report.out_perms.items():
         graph = containers[what.split("[", 1)[0]].graph
         validate_out_perm(graph.nodes[what.split("/", 1)[1]], graph, perm, what)
-    # an encoder-decoder's two stacks: its encoder's layers, then the decoder's
-    expected = sum((cfg.n_enc_layers or cfg.n_layers) * len(c.graph.nodes) if c.key == "enc"
-                   else cfg.n_layers * len(c.graph.nodes) for c in containers.values())
+
+    def n_layers(c):
+        # an encoder-decoder's encoder stack; a recurrent family's stack of
+        # one pattern position holds one layer a period
+        if c.key == "enc":
+            return cfg.n_enc_layers or cfg.n_layers
+        return cfg.n_layers // len(containers) if c.key.startswith("stack") else cfg.n_layers
+
+    expected = sum(n_layers(c) * len(c.graph.nodes) for c in containers.values())
     if len(report.out_perms) != expected:
         raise AssertionError(f"{len(report.out_perms)} searched perms, expected {expected}")
     return expected
@@ -2270,13 +2300,14 @@ def profile_phase(cfg, model) -> dict:
     return {k: dict(v, ops=v["ops"][:40]) for k, v in out.items()}
 
 
-def entry_point_runs() -> dict:
+def entry_point_runs() -> list:
     """examples/serve_hinm_torch.py on the card at its defaults, with
-    --compare-dense: once recording (exit 0, `identical: True`), once
-    replaying that record with the same flags (exit 0, replay OK)."""
+    --compare-dense: once recording, once replaying that record with the
+    same flags.  Returns each run's (label, want, completed process, wall
+    seconds) for `entry_point_check`."""
     rec = os.path.join(OUT, "serve_hinm_torch.jsonl")
     script = os.path.join(ROOT, "examples", "serve_hinm_torch.py")
-    out = {}
+    out = []
     for mode, extra, want in (("record", ["--record", rec], "identical: True"),
                               ("replay", ["--replay", rec], "replay OK")):
         t0 = time.perf_counter()
@@ -2285,17 +2316,45 @@ def entry_point_runs() -> dict:
         wall = time.perf_counter() - t0
         with open(os.path.join(OUT, f"serve_hinm_torch_{mode}.txt"), "w") as f:
             f.write(p.stdout + "\n--- stderr ---\n" + p.stderr)
-        tail = "\n  ".join(p.stdout.strip().splitlines()[-8:])
-        print(f"observe entry point, {mode} (exit {p.returncode}, {wall:.1f} s):\n  {tail}",
-              flush=True)
-        if p.returncode != 0 or want not in p.stdout or "identical: False" in p.stdout:
-            raise AssertionError(f"examples/serve_hinm_torch.py --{mode} failed (exit "
-                                 f"{p.returncode}): {p.stderr[-2000:]}")
-        out[mode] = dict(exit=p.returncode, wall_s=wall)
+        out.append((f"observe entry point, {mode}", want, p, wall))
+        if p.returncode != 0:
+            break
     return out
 
 
-def observe_phase(cfg, model, served) -> dict:
+def entry_point_check(runs, lines=8) -> dict:
+    """Print each entry-point run's last `lines` lines and fail unless it
+    exited 0 with its `want` line (and no `identical: False`)."""
+    out = {}
+    for label, want, p, wall in runs:
+        tail = "\n  ".join(p.stdout.strip().splitlines()[-lines:])
+        print(f"{label} (exit {p.returncode}, {wall:.1f} s):\n  {tail}", flush=True)
+        if p.returncode != 0 or want not in p.stdout or "identical: False" in p.stdout:
+            raise AssertionError(f"{label} failed (exit {p.returncode}): {p.stderr[-2000:]}")
+        out[label] = dict(exit=p.returncode, wall_s=wall)
+    return out
+
+
+def entry_points_start():
+    """Run the entry points' subprocesses (`entry_point_runs`, then
+    `train_entry_point`) on a thread of their own, beside phase 4's
+    host-bound search; phases 6 and 10 check what they did
+    (`entry_point_check`).  Returns (the future, the training twin's
+    checkpoint directory)."""
+    import concurrent.futures
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="entry_points_")
+    ex = concurrent.futures.ThreadPoolExecutor(1)
+    fut = ex.submit(lambda: (entry_point_runs(), train_entry_point(root)))
+    ex.shutdown(wait=False)
+    print("entry points (examples/serve_hinm_torch.py record + replay, "
+          "examples/train_hinm_lm_torch.py) started on a thread (phases 6 and 10 check them)",
+          flush=True)
+    return fut, root
+
+
+def observe_phase(cfg, model, served, entry) -> dict:
     """Telemetry and the flight recorder on the served model: streams and
     launches unchanged with both on (the main flow's mix, and the share
     workload with prefill_chunk=SHARE_CHUNK), records replayed event- and
@@ -2353,8 +2412,8 @@ def observe_phase(cfg, model, served) -> dict:
     prof = profile_phase(cfg, model)
     parts["profile"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    entry = entry_point_runs()
-    parts["entry point"] = time.perf_counter() - t0
+    entry = entry_point_check(entry.result()[0])
+    parts["entry point (waited)"] = time.perf_counter() - t0
     wall = time.perf_counter() - t_phase
     print(f"observe phase took {wall:.1f} s: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in parts.items()), flush=True)
@@ -3743,9 +3802,9 @@ def gradual_phase(dev="cuda", **kw):
     return runs
 
 
-def train_entry_point(root) -> dict:
-    """examples/train_hinm_lm_torch.py --scale tiny --steps 40 on the card
-    (exit 0, its three report lines)."""
+def train_entry_point(root) -> list:
+    """examples/train_hinm_lm_torch.py --scale tiny --steps 40 on the card;
+    `entry_point_check` wants exit 0 and its report lines."""
     script = os.path.join(ROOT, "examples", "train_hinm_lm_torch.py")
     t0 = time.perf_counter()
     p = subprocess.run([sys.executable, script, "--scale", "tiny", "--steps", "40",
@@ -3754,18 +3813,14 @@ def train_entry_point(root) -> dict:
     wall = time.perf_counter() - t0
     with open(os.path.join(OUT, "train_hinm_lm_torch.txt"), "w") as f:
         f.write(p.stdout + "\n--- stderr ---\n" + p.stderr)
-    tail = "\n  ".join(p.stdout.strip().splitlines()[-3:])
-    print(f"train entry point (exit {p.returncode}, {wall:.1f} s):\n  {tail}", flush=True)
-    if p.returncode != 0 or "recovery gap" not in p.stdout:
-        raise AssertionError(f"examples/train_hinm_lm_torch.py failed (exit {p.returncode}): "
-                             f"{p.stderr[-2000:]}")
-    return dict(exit=p.returncode, wall_s=wall)
+    return [("train entry point", "recovery gap", p, wall)]
 
 
-def train_phase() -> dict:
+def train_phase(entry) -> dict:
     """Training on the card, no fallback: the full-width step, microbatches,
     the card against the CPU, the loop's faults and resume, gradual
-    pruning, the entry point."""
+    pruning, the entry point (`entry_points_start`'s)."""
+    import shutil
     import tempfile
 
     if not torch.cuda.is_available():
@@ -3777,7 +3832,9 @@ def train_phase() -> dict:
     with tempfile.TemporaryDirectory() as root:
         out["loop"] = loop_faults(root)
         out["gradual"] = gradual_phase()
-        out["entry_point"] = train_entry_point(root)
+    fut, entry_root = entry
+    out["entry_point"] = entry_point_check(fut.result()[1], lines=3)["train entry point"]
+    shutil.rmtree(entry_root, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t0
     print(f"train phase {out['wall_s']:.1f} s", flush=True)
     return out
@@ -4346,6 +4403,297 @@ def frontend_phase(child):
             "seamless": front_model_phase("seamless", ENCDEC, pruned)}
 
 
+# --------------------------------------------------------------------------
+# phase 12: the recurrent ssm family (xlstm-125m)
+# --------------------------------------------------------------------------
+
+SSM = "xlstm_125m"
+SSM_SEED = 16
+# the served geometry: a page is asked for and falls back to stripes (the
+# family has no pages)
+SSM_GEOM = dict(max_slots=4, max_seq=256, page=16, decode_chunk=8)
+SSM_NEW = 32
+# the 8 greedy requests' prompt lengths, two arriving a step: 4 distinct
+# lengths from 16 to 128, paired so that exact-length groups of two form;
+# then 2 sampled requests
+SSM_LENS = (37, 37, 16, 16, 80, 80, 128, 37)
+SSM_SAMPLED_LENS = (37, 64)
+# K1 at one exact prefill width: a group of 2 prompts of 37 tokens
+SSM_PREFILL_B = 2 * 37
+# the planned projections of a block, per kind
+SSM_PATHS = {"stack0": ("wq", "wk", "wv", "wo_gate", "wout"),
+             "stack1": ("wz", "wi", "wf", "wo", "wout")}
+
+
+def ssm_build():
+    """xlstm-125m at full width, inited on the card (seed SSM_SEED); the
+    first period (layer 0 of each pattern-position stack) gyro-pruned by
+    `prune_model` at MOE_PRUNE_ITERS, then noperm; the served model takes
+    the gyro blocks and `zoo.pack_params` packs the rest (noperm)."""
+    import dataclasses
+
+    from repro_torch.configs.base import load_arch
+    from repro_torch.models import xlstm_model, zoo
+    from repro_torch.serve import param_bytes
+    from repro_torch.train import pruning
+
+    cfg = load_arch(SSM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = zoo.init(cfg, torch.Generator(device="cuda").manual_seed(SSM_SEED), "cuda")
+    torch.cuda.synchronize()
+    info = dict(init_s=time.perf_counter() - t0)
+    cfg1 = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern))
+    one = xlstm_model.XLSTM(model.embed, [[s[0]] for s in model.stacks], model.ln_f,
+                            model.lm_head)
+    out = {}
+    for method in ("gyro", "noperm"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, packed, rep = pruning.prune_model(
+            one, cfg1, method=method, rng=np.random.default_rng(0),
+            ocp_iters=MOE_PRUNE_ITERS[0], icp_iters=MOE_PRUNE_ITERS[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        print(f"xlstm period 0 prune_model(method={method!r}, {MOE_PRUNE_ITERS[0]}/"
+              f"{MOE_PRUNE_ITERS[1]}): {wall:.1f} s (search {rep.phase_seconds['search']:.1f} "
+              f"s); {rep.searches_run} searches; mean retained {rep.mean_retained:.6f}",
+              flush=True)
+        out[method] = dict(packed=packed, report=rep, wall_s=wall)
+    gyro, noperm = out["gyro"]["report"], out["noperm"]["report"]
+    n = check_perms(cfg1, gyro)
+    print(f"xlstm period 0: gyro {gyro.mean_retained:.6f} vs noperm {noperm.mean_retained:.6f} "
+          f"mean retained (gain {gyro.mean_retained - noperm.mean_retained:+.6f}); {n} searched "
+          "perms pass their constraint checks", flush=True)
+    if not gyro.mean_retained >= noperm.mean_retained - GYRO_MARGIN:
+        raise AssertionError(f"xlstm gyro retained {gyro.mean_retained} < noperm "
+                             f"{noperm.mean_retained} - {GYRO_MARGIN}")
+    for j, stack in enumerate(out["gyro"]["packed"].stacks):
+        model.stacks[j][0] = stack[0]
+    del one, out["gyro"]["packed"], out["noperm"]["packed"]
+    t = time.perf_counter()
+    zoo.pack_params(cfg, model)
+    torch.cuda.synchronize()
+    packed_b, dense_b = param_bytes(model)
+    info.update(pack_s=time.perf_counter() - t, packed_bytes=packed_b, dense_bytes=dense_b,
+                perms_checked=n,
+                prune={m: dict(wall_s=v["wall_s"], mean_retained=v["report"].mean_retained)
+                       for m, v in out.items()})
+    print(f"{SSM}: {cfg.n_layers} layers ({'/'.join(cfg.block_pattern)}) d_model {cfg.d_model} "
+          f"heads {cfg.n_heads} (state width {cfg.d_model // cfg.n_heads}), vocab {cfg.vocab} "
+          f"-> {cfg.vocab_padded}, {cfg.norm}; init {info['init_s']:.1f} s, pack "
+          f"{info['pack_s']:.1f} s; weights {gb(packed_b)} packed vs {gb(dense_b)} dense",
+          flush=True)
+    return cfg, model, info
+
+
+def ssm_k1(model, gen):
+    """K1 on the 5 planned projections of each block kind of period 0
+    (gyro-pruned: permuted vec_idx), at B 4 (a decode step's slots) and
+    at SSM_PREFILL_B (one exact prefill group's rows), held against the
+    plain version and timed beside `torch.matmul` and the bound; summed
+    per block."""
+    from repro_torch.models import module as M
+
+    out, blocks = [], {}
+    for key, paths in SSM_PATHS.items():
+        blk = getattr(model, key)[0]
+        for b in (4, SSM_PREFILL_B):
+            cases = [k1_case(f"xlstm {key} {path}", M.get_path(blk, path).w, b, gen)
+                     for path in paths]
+            out += cases
+            blocks[f"{key} B{b}"] = {k: sum(c[k] for c in cases)
+                                     for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    for k, v in blocks.items():
+        print(f"K1 xlstm, the 5 projections of the {k.split()[0]} block at {k.split()[1]}: kernel "
+              f"{v['ms'] * 1e3:.1f} us, plain {v['plain_ms'] * 1e3:.1f} us, matmul "
+              f"{v['library_ms'] * 1e3:.1f} us, bound {v['bound_ms'] * 1e3:.1f} us", flush=True)
+    return out, blocks
+
+
+@torch.no_grad()
+def ssm_forced(cfg, model, prompt, forced, backend):
+    """Prefill `prompt` into a stripe template of a pool asked for pages
+    (it falls back to stripes), insert its rows, then decode steps fed the
+    `forced` tokens: the stacked logits (1 + steps, B, vocab) in f32."""
+    from repro_torch.models import zoo
+    from repro_torch.serve.kv import SlotKVCache
+
+    b, n = prompt.shape
+    kv = SlotKVCache(cfg, b, SSM_GEOM["max_seq"], page=16, device="cuda")
+    if kv.paged:
+        raise AssertionError("xlstm: a pool asked for pages is paged")
+    stripe = kv.template(b)
+    logits = [zoo.logits_fn(model, cfg, zoo.prefill(model, cfg, prompt, stripe,
+                                                    backend=backend))]
+    for row in range(b):
+        kv.insert(kv.acquire(), stripe, n, row=row, reserve=n + len(forced))
+    for tok in forced:
+        logits.append(zoo.decode_step(model, cfg, tok, kv.cache, backend=backend))
+    return torch.stack(logits)[..., : cfg.vocab].float()
+
+
+def ssm_agree(cfg, model, n_prompt=40, n_dec=4):
+    """A teacher-forced prefill + `n_dec` decode steps through the kernels,
+    against the plain versions and a float32 twin of the same masked
+    weights (`f32_twin`)."""
+    rng = np.random.default_rng(13)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, n_prompt)).astype(np.int32)).cuda()
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab, (n_dec, 2, 1)).astype(np.int32)).cuda()
+    a = ssm_forced(cfg, model, prompt, forced, "auto")
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("xlstm: non-finite logits on the kernel path")
+    out = {"plain": compare_logits(f"xlstm: kernels vs plain versions, prefill + {n_dec} "
+                                   "decode steps", a,
+                                   ssm_forced(cfg, model, prompt, forced, "torch"))}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32, twin = f32_twin(cfg, model)
+    out["f32"] = compare_logits("xlstm: kernels vs a float32 twin of the masked weights "
+                                "(TF32 off)", a, ssm_forced(cfg32, twin, prompt, forced, "torch"),
+                                tol=F32_TOL)
+    del twin
+    free_card()
+    return out
+
+
+def ssm_requests(vocab):
+    """The 8 greedy requests (SSM_LENS) and 2 sampled ones (T 0.8, top-k 16,
+    seed = rid), SSM_NEW new tokens each, two arriving a step."""
+    from repro_torch.serve import Request, SamplingParams
+
+    rng = np.random.default_rng(17)
+    lens = SSM_LENS + SSM_SAMPLED_LENS
+    prompts = [rng.integers(1, vocab, n).astype(np.int32) for n in lens]
+
+    def make():
+        reqs = []
+        for i, p in enumerate(prompts):
+            sp = SamplingParams(max_new_tokens=SSM_NEW)
+            if i >= len(SSM_LENS):
+                sp.temperature, sp.top_k, sp.seed = 0.8, 16, i
+            reqs.append(Request(rid=i, prompt=p, params=sp, arrival=i // 2))
+        return reqs
+    return make
+
+
+def ssm_prefill_costs(sched, lens=(16, 37, 80, 128)):
+    """What a prefill program of each exact length costs, width 1, greedy:
+    its eager run (host wall, synchronized), the capture of its graph
+    (host seconds, `GraphCache.capture_seconds`) and a replay (wall,
+    synchronized), on the scheduler's own prefill body and buffers, in a
+    graph cache of its own."""
+    from repro_torch.serve.graphs import GraphCache
+
+    cache = GraphCache(sched.device)
+    rng = np.random.default_rng(19)
+    out = {}
+    for n in lens:
+        io = sched._prefill_buffers(n, 1)
+        io["tokens"].copy_(torch.from_numpy(rng.integers(1, sched.cfg.vocab, (1, n))
+                                            .astype(np.int32)))
+        body = sched._prefill_body(io, False)
+        key = ("prefill cost", n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        body()
+        torch.cuda.synchronize()
+        eager = time.perf_counter() - t0
+        cache.run(key, body)                # eager again, then the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache.run(key, body)                # a replay
+        torch.cuda.synchronize()
+        replay = time.perf_counter() - t0
+        out[n] = dict(eager_ms=eager * 1e3, capture_ms=cache.capture_seconds[key] * 1e3,
+                      replay_ms=replay * 1e3)
+        print(f"xlstm prefill of {n} tokens (width 1): eager {eager * 1e3:.1f} ms, capture "
+              f"{out[n]['capture_ms']:.1f} ms, replay {replay * 1e3:.2f} ms (break-even after "
+              f"{1 + out[n]['capture_ms'] / max(out[n]['eager_ms'] - out[n]['replay_ms'], 1e-9):.2f}"
+              " uses)", flush=True)
+    del cache
+    free_card()
+    return out
+
+
+def ssm_serve(cfg, model):
+    """SSM_GEOM's Scheduler (a page asked for; the pool must be stripes):
+    the 8 greedy + 2 sampled requests graphed and as the eager twin,
+    streams equal; launches a decode step (60 K1, 0 K2) and an admission
+    group (60 K1) asserted; the prefill graphs captured by exact length;
+    SpecConfig(k=3) and bucket=True refused."""
+    from repro_torch.serve import Scheduler, SpecConfig
+
+    per_step = 5 * cfg.n_layers
+    sched = Scheduler(cfg, model, **SSM_GEOM)
+    if sched.kv.paged or sched.bucket:
+        raise AssertionError("xlstm: the pool is paged or the prefill bucketed")
+    print(f"xlstm scheduler: stripe pool {gb(sched.kv.pool_bytes())} for "
+          f"{SSM_GEOM['max_slots']} slots (page {SSM_GEOM['page']} asked for, kv.paged "
+          f"{sched.kv.paged}), prefill exact-length", flush=True)
+    runs = serve_run("xlstm plain", sched, ssm_requests(cfg.vocab))
+    (got, line), (ref, eline) = runs["graphed"], runs["eager"]
+    same = sum(a.tokens == b.tokens for a, b in zip(ref, got))
+    print(f"xlstm graphed vs eager: streams equal {same}/{len(ref)}", flush=True)
+    if same != len(ref):
+        raise AssertionError("xlstm: graphed streams differ from the eager twin's")
+    groups = len(set(admission_groups(got).values()))
+    for mode, (_, ln) in runs.items():
+        want = ((ln["decode_steps"] + groups) * per_step, 0)
+        print(f"xlstm {mode}: launches hinm_spmm {ln['hinm_spmm']}, paged_decode_attn "
+              f"{ln['paged_decode_attn']} (want {want[0]}, 0: {per_step} a decode step x "
+              f"{ln['decode_steps']} and {per_step} an admission group x {groups})", flush=True)
+        if (ln["hinm_spmm"], ln["paged_decode_attn"]) != want:
+            raise AssertionError(f"xlstm {mode}: launches differ from the programs' count")
+    captures = sorted((k[1], k[2], k[3], round(v * 1e3, 1))
+                      for k, v in sched.graphs.capture_seconds.items() if k[0] == "prefill")
+    lengths = sorted({k[0] for k in captures})
+    print(f"xlstm prefill graphs captured: {len(captures)} (length, width, stochastic, capture "
+          f"ms): {captures}; distinct lengths {lengths}", flush=True)
+    if lengths != sorted(set(SSM_LENS + SSM_SAMPLED_LENS)):
+        raise AssertionError("xlstm: the prefill graphs are not keyed by exact length")
+    before_after("xlstm plain", runs)
+    refused = {}
+    for name, kw in (("spec", dict(spec=SpecConfig(k=3))), ("bucket", dict(bucket=True))):
+        try:
+            Scheduler(cfg, model, **SSM_GEOM, **kw)
+        except ValueError as e:
+            refused[name] = str(e)
+            print(f"xlstm {name} refused: {e}", flush=True)
+            continue
+        raise AssertionError(f"xlstm: {kw} was not refused")
+    out = dict(runs={"plain": {m: ln for m, (_, ln) in runs.items()}}, streams_equal=same,
+               requests=len(ref), groups=groups, per_step_k1=per_step,
+               prefill_captures=captures, refused=refused)
+    out["prefill_costs"] = ssm_prefill_costs(sched)
+    del sched
+    free_card()
+    return out
+
+
+def ssm_phase():
+    """Phase 12: xlstm-125m at full width on the card: build, prune and
+    pack; K1 at its shapes; agreement; serving."""
+    t0 = time.perf_counter()
+    cfg, model, info = ssm_build()
+    parts = {"build": time.perf_counter() - t0}
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SSM_SEED + 1)
+    out = {"build": info}
+    out["k1"], out["k1_blocks"] = ssm_k1(model, gen)
+    parts["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["agree"] = ssm_agree(cfg, model)
+    parts["agree"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["serve"] = ssm_serve(cfg, model)
+    parts["serve"] = time.perf_counter() - t
+    del model
+    free_card()
+    out["parts_s"] = parts
+    print("xlstm parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()), flush=True)
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -4384,6 +4732,8 @@ def main() -> int:
     # phase 11's layer-0 gyro searches, beside this phase's own
     child = front_prune_start()
     atexit.register(lambda: child[0].poll() is None and child[0].kill())
+    # the entry points' subprocesses, beside this phase's host-bound search
+    entry = entry_points_start()
     gen = torch.Generator(device="cuda").manual_seed(2)
     model, pruned, k1_gyro = prune_phase(cfg, model, gen)
     k3.append(k3_path)
@@ -4393,7 +4743,7 @@ def main() -> int:
     served = serve_phase(cfg, model)
 
     phase("6. observe")
-    observed = observe_phase(cfg, model, served)
+    observed = observe_phase(cfg, model, served, entry[0])
 
     phase("7. agree")
     served["agree"] = agree_phase(cfg, model)
@@ -4408,10 +4758,13 @@ def main() -> int:
     moe = moe_phase()
 
     phase("10. train")
-    trained = train_phase()
+    trained = train_phase(entry)
 
     phase("11. frontend")
     front = frontend_phase(child)
+
+    phase("12. ssm")
+    ssm = ssm_phase()
     phase()
 
     front_k1s = [c for f in front.values() for c in f["k1"]]
@@ -4433,6 +4786,9 @@ def main() -> int:
                 for k, v in f["serve"]["runs"].items()})
     by_path = {name: {p: paths[p][name] for p in paths}
                for name in ("hinm_spmm", "paged_decode_attn")}
+    # xlstm has no attention: K1 alone runs on its path (K2's 0 asserted)
+    by_path["hinm_spmm"] |= {f"xlstm {k}": v["graphed"]["hinm_spmm"]
+                             for k, v in ssm["serve"]["runs"].items()}
     for name, counts in by_path.items():
         if min(counts.values()) < 1:
             raise AssertionError(f"{name} was not launched on every path: {counts}")
@@ -4451,14 +4807,18 @@ def main() -> int:
                  name: {"layers": o["build"]["layers"]} for name, o in dense["others"].items()},
              frontend={f["name"]: dict(layer=f["k1_layer"], launch_plan=f["serve"]["runs"][
                  "plain"]["graphed"]["launch_plan"]) for f in front.values()},
+             ssm={SSM: dict(blocks=ssm["k1_blocks"], per_decode_step=ssm["serve"]["per_step_k1"],
+                            per_admission_group=ssm["serve"]["per_step_k1"],
+                            timed="the 5 planned projections of a block (768x768 each), bf16, "
+                                  f"at B 4 and B {SSM_PREFILL_B}")},
              prefill=k1_prefill_layer(k1, served["prefill_k1_per_admission"]),
              extension=layer.pop("extension"),
              **{**layer,
-                "max_abs_err": max([layer["max_abs_err"]]
-                                   + [c["max_abs_err"] for c in k1 + moe["k1"] + front_k1s]),
-                "max_rel_err": max([layer["max_rel_err"]]
-                                   + [c["max_rel_err"] for c in k1 + moe["k1"] + front_k1s])},
-             cases=k1 + front_k1s),
+                "max_abs_err": max([layer["max_abs_err"]] + [
+                    c["max_abs_err"] for c in k1 + moe["k1"] + front_k1s + ssm["k1"]]),
+                "max_rel_err": max([layer["max_rel_err"]] + [
+                    c["max_rel_err"] for c in k1 + moe["k1"] + front_k1s + ssm["k1"]])},
+             cases=k1 + front_k1s + ssm["k1"]),
         dict(name="paged_decode_attn", route="cuda",
              source="src/repro_torch/csrc/paged_attn.cu",
              replaces="src/repro/kernels/paged_attn.py:116",
@@ -4594,6 +4954,18 @@ def main() -> int:
                           f"device {ln['device_step_ms']:.3f} ms a step, idle "
                           f"{ln['idle_share']:.1%}"
                           for k, v in fs["runs"].items() for m, ln in v.items()))
+    sb, sv = ssm["build"], ssm["serve"]
+    print(f"ssm: xlstm {gb(sb['packed_bytes'])} packed vs {gb(sb['dense_bytes'])} dense; period-0 "
+          f"gyro {sb['prune']['gyro']['wall_s']:.1f} s, retained "
+          f"{sb['prune']['gyro']['mean_retained']:.6f} vs noperm "
+          f"{sb['prune']['noperm']['mean_retained']:.6f}; agree plain "
+          f"{ssm['agree']['plain'][0]:.2e}, f32 {ssm['agree']['f32'][0]:.2e}; graphed = eager "
+          f"{sv['streams_equal']}/{sv['requests']}; {sv['groups']} admission groups, "
+          f"{len(sv['prefill_captures'])} prefill graphs; "
+          + "; ".join(f"{m} {ln['decode_tok_s']:.1f} decode tok/s, p50 step "
+                      f"{ln['p50_step_ms']:.2f} ms, p50 TTFT {ln['p50_ttft_ms']:.1f} ms, device "
+                      f"{ln['device_step_ms']:.3f} ms a step, idle {ln['idle_share']:.1%}"
+                      for m, ln in sv["runs"]["plain"].items()))
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in SECONDS.items()))
     print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     print(smi)

@@ -29,13 +29,13 @@ ARCH_IDS = (
 PAPER_IDS = ("bert_base", "deit_base")
 PORTED_IDS = ("qwen2_0_5b", "qwen2_5_14b", "codeqwen1_5_7b", "starcoder2_15b", "bert_base",
               "granite_moe_3b_a800m", "grok_1_314b", "phi_3_vision_4_2b", "deit_base",
-              "seamless_m4t_medium")
+              "seamless_m4t_medium", "xlstm_125m")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | moe | vlm | encdec (ported); hybrid | ssm
+    family: str                  # dense | moe | vlm | encdec | ssm (ported); hybrid
     n_layers: int
     d_model: int
     n_heads: int

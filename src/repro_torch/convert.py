@@ -2,7 +2,8 @@
 
 `params_from_numpy` takes the reference params tree after
 ``jax.tree.map(np.asarray, params)``: a nested dict whose ``blocks`` leaves
-(an encoder-decoder's ``enc`` and ``dec`` leaves) are layer-stacked
+(an encoder-decoder's ``enc`` and ``dec`` leaves; a recurrent family's
+``stacks[j]``, one tree a pattern position) are layer-stacked
 ``(L, ...)``, possibly with packed leaves whose fields are numpy arrays.  Packed leaves are read by duck typing (``vals``,
 ``vec_idx``, ``nm_idx``, ``n_out``, ``n_in``, ``config.{v,n,m,
 vector_sparsity}``), so the port never imports the reference.  The
@@ -21,7 +22,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import module as M
 from repro_torch.models import encdec
 from repro_torch.models import moe as MOE
-from repro_torch.models import transformer
+from repro_torch.models import transformer, xlstm_model
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -89,11 +90,24 @@ def _encdec_from_numpy(cfg, tree: dict, device) -> encdec.EncDec:
         _head(tree["lm_head"], device))
 
 
+def _xlstm_from_numpy(cfg, tree: dict, device) -> xlstm_model.XLSTM:
+    stacks = [[xlstm_model.block_from(kind, node, i,
+                                      lin=lambda n, i: _linear(n, i, device),
+                                      norm=lambda n, i: _norm(n, i, device),
+                                      leaf=lambda a, i: to_tensor(a[i], device))
+               for i in range(xlstm_model.n_periods(cfg))]
+              for kind, node in zip(xlstm_model.pattern(cfg), tree["stacks"])]
+    return xlstm_model.XLSTM(M.Embed(to_tensor(tree["embed"]["table"], device)), stacks,
+                             _norm(tree["ln_f"], None, device), _head(tree["lm_head"], device))
+
+
 def params_from_numpy(cfg, tree: dict, device="cuda"):
     """Build the port's model holding the same numbers as `tree`."""
     device = resolve_device(device)
     if cfg.family == "encdec":
         return _encdec_from_numpy(cfg, tree, device)
+    if cfg.family == "ssm":
+        return _xlstm_from_numpy(cfg, tree, device)
     blk = tree["blocks"]
     blocks = []
     for i in range(cfg.n_layers):
@@ -124,8 +138,16 @@ def masks_from_numpy(cfg, tree: dict, device="cuda"):
     """The reference's `prune_model` masks (after
     ``jax.tree.map(np.asarray, masks)``) as the port's: one {path:
     stored-orientation (n_in, n_out) bool mask} dict per block; for an
-    encoder-decoder, ``{"enc": [...], "dec": [...]}`` of such lists."""
+    encoder-decoder, ``{"enc": [...], "dec": [...]}`` of such lists, for a
+    recurrent family ``{"stack0": [...], "stack1": [...]}`` (the
+    reference's ``stacks[j]``)."""
     device = resolve_device(device)
+    if cfg.family == "ssm":
+        return {f"stack{j}": [{name: to_tensor(node["w"][i], device)
+                               for name, node in stack.items()
+                               if isinstance(node, dict) and node.get("w") is not None}
+                              for i in range(xlstm_model.n_periods(cfg))]
+                for j, stack in enumerate(tree["stacks"])}
     if cfg.family == "encdec":
         return {"enc": _stack_masks(tree["enc"], encdec.n_enc_layers(cfg), device),
                 "dec": _stack_masks(tree["dec"], cfg.n_layers, device)}

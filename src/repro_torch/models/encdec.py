@@ -266,6 +266,12 @@ def cache_batch_axes(cfg, cache) -> dict:
             "enc_out": 0, "enc_len": 0}
 
 
+def reset_cache(cfg, cache) -> None:
+    paging.reset_attn(cache["self"])
+    cache["enc_out"].zero_()
+    cache["enc_len"].zero_()
+
+
 def page_geometry(cfg, max_seq: int, page: int) -> dict:
     """Only the decoder's self-attention K/V is paged; the encoder output is
     a per-slot stripe (written at admission, read-only after)."""

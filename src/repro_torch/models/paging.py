@@ -67,6 +67,18 @@ def make_tables(n_stack: int, batch: int, n_bt: int, device) -> dict:
     }
 
 
+# the pristine value of an attention cache's leaves (`make_attn_pool`,
+# `make_tables`, the stripe cache); 0 elsewhere
+_PRISTINE = {"kpos": KPOS_SENTINEL, "bt": SENTINEL_PAGE}
+
+
+def reset_attn(cache: dict) -> None:
+    """Every leaf of one attention stack's cache (stripe or paged) back to
+    its pristine value, in place."""
+    for name, leaf in cache.items():
+        leaf.fill_(_PRISTINE.get(name, 0))
+
+
 def gather_view(pool: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     """Resolve slots' logical views through their block tables: ``pool``
     ``(n_pages, page, ...)`` gathered by ``bt (B, n_bt)`` into a contiguous

@@ -212,6 +212,10 @@ def make_cache(cfg, batch: int, max_seq: int, dtype=None, page=None,
     }
 
 
+def reset_cache(cfg, cache) -> None:
+    paging.reset_attn(cache)
+
+
 def cache_batch_axes(cfg, cache) -> dict:
     """The slot axis of each cache leaf: 1 for the (L, B, ...) stripe and
     bookkeeping leaves, None for a paged pool's page buffers."""

@@ -1,12 +1,13 @@
 """Family dispatch (port of `repro.models.zoo`): the dense, MoE and vlm
-families, run by the transformer module, and the encoder-decoder family
-(`encdec`).
+families, run by the transformer module, the encoder-decoder family
+(`encdec`) and the recurrent ssm family (`xlstm_model`).
 
   init(cfg, generator, device)            -> model
   forward(model, cfg, tokens, embeds=, remat=) -> pre-logits (B, S, D)
   params_of / from_params                 -> the reference's params tree
   logits_fn(model, cfg, x)                -> vocab projection
   make_cache(cfg, batch, max_seq, ...)    -> decode cache
+  reset_cache(cfg, cache)                 -> the cache pristine, in place
   cache_batch_axes(cfg, cache)            -> slot axis per cache leaf
   prefill / decode_step                   -> serving
   verify_step / cache_rollback / cache_position -> speculative decoding
@@ -19,9 +20,10 @@ from __future__ import annotations
 from repro_torch.core import packing
 from repro_torch.core.types import PackedHiNM
 from repro_torch.models import module as M
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec, transformer, xlstm_model
 
-_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer, "encdec": encdec}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer, "encdec": encdec,
+           "ssm": xlstm_model}
 
 
 def model_for(cfg):
@@ -63,10 +65,18 @@ def make_cache(cfg, batch: int, max_seq: int, dtype=None, **kw):
     return model_for(cfg).make_cache(cfg, batch, max_seq, dtype=dtype, **kw)
 
 
-def cache_batch_axes(cfg, cache) -> dict:
+def cache_batch_axes(cfg, cache):
     """The slot axis of each cache leaf (None for a paged pool's page
-    buffers): the slot pool inserts and resets stripe slots with it."""
+    buffers), in the cache's own structure: the slot pool inserts and
+    resets stripe slots with it."""
     return model_for(cfg).cache_batch_axes(cfg, cache)
+
+
+def reset_cache(cfg, cache) -> None:
+    """Every leaf of `cache` back to its pristine value (`make_cache`'s),
+    in place: the family defines it (a sentinel position or page, a
+    recurrent state's stabiliser), so the slot pool never guesses it."""
+    model_for(cfg).reset_cache(cfg, cache)
 
 
 def prefill(model, cfg, tokens, cache, embeds=None, n_rows=None, backend: str = "auto"):
@@ -109,8 +119,10 @@ def cache_rollback(cfg, cache, undo, pos0, keep, n_written):
 
 
 def rewind_cache(cfg, cache) -> None:
-    """Set a reused stripe template's write position back to 0, in place
-    (prefill writes its rows from there)."""
+    """Ready a reused stripe template for the next prefill, in place: its
+    write position back to 0 (prefill writes its rows from there), or a
+    recurrent family's whole state back to pristine (prefill starts from
+    it)."""
     model_for(cfg).rewind_cache(cfg, cache)
 
 

@@ -348,7 +348,8 @@ class ModelPermEngine:
         reference's flattened leading dims) with the node's own generator;
         items run on the thread pool.  Returns one {path: stored-orientation
         mask} dict per block (an expert stack's (E, n_in, n_out)), one list
-        a layer stack (``{"enc": [...], "dec": [...]}`` where two); the
+        a layer stack (``{"enc": [...], "dec": [...]}`` or ``{"stack0":
+        [...], "stack1": [...]}`` where several); the
         report keeps each search's row permutation (an expert stack's
         stacked), under which the mask has the HiNM structure."""
         instances = list(self.graph.instances())

@@ -22,10 +22,11 @@ rules:
                                 never cross a block boundary
 
 The model-level `ModelPermGraph` holds one container per layer template
-and where its layers live on the model.  The port has the decoder-only
-plan (a list of specs over ``model.blocks``); the per-pattern-position
-and encoder/decoder plans come with their families (ROADMAP Queue 1
-item 8).
+and where its layers live on the model: the decoder-only plan (a list of
+specs over ``model.blocks``), the encoder/decoder plan (``enc`` and
+``dec``) and the per-pattern-position plan of a recurrent family
+(``{j: specs}`` over ``model.stack{j}``, tagged ``stack{j}`` as the
+reference's).
 """
 from __future__ import annotations
 
@@ -213,8 +214,7 @@ def compile_model_graph(cfg) -> ModelPermGraph:
     if isinstance(plan, dict) and "enc" in plan:
         return ModelPermGraph([Container(k, k, compile_layer_graph(plan[k]))
                                for k in ("enc", "dec")])
-    if isinstance(plan, dict):
-        raise NotImplementedError(
-            f"{cfg.name}: per-pattern-position stacks are not ported yet; see "
-            "ROADMAP.md Queue 1 item 8 (hybrid)")
+    if isinstance(plan, dict):  # per-pattern-position stacks
+        return ModelPermGraph([Container(f"stack{j}", f"stack{j}", compile_layer_graph(specs))
+                               for j, specs in plan.items()])
     return ModelPermGraph([Container("blocks", "blocks", compile_layer_graph(plan))])

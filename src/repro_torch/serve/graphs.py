@@ -3,7 +3,11 @@ the reference scheduler's jitted programs (`Scheduler._build`).
 
 The scheduler keys each program by the reference's static arguments: a
 prefill by (bucket, width, `stochastic`, embeds shape), so a vlm's patch
-rows or an encoder-decoder's frames of one shape share one graph.
+rows or an encoder-decoder's frames of one shape share one graph.  A
+recurrent family's prefill is keyed by its exact length instead of a
+bucket (its groups are not padded), so each distinct (length, width,
+`stochastic`) is a graph of its own, a chain of one step's small ops per
+token and layer; ``capture_seconds`` keeps each key's capture time.
 
 A body is a closure without arguments that reads and writes only tensors
 whose storage stays put (the scheduler's per-slot state, the KV pool,
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import time
 
 import torch
 
@@ -67,8 +72,10 @@ def _eager():
 
 class GraphCache:
     """Keyed CUDA graphs over one shared memory pool (see the module
-    docstring).  ``captures`` and ``replays`` count what it did;
-    `on_build(key)` is called once per key, when its program is built."""
+    docstring).  ``captures`` and ``replays`` count what it did, and
+    ``capture_seconds`` maps each captured key to the host seconds its
+    capture took; `on_build(key)` is called once per key, when its
+    program is built."""
 
     def __init__(self, device: torch.device, on_build=None):
         self.device = device
@@ -78,6 +85,7 @@ class GraphCache:
         self._on_build = on_build
         self.captures = 0
         self.replays = 0
+        self.capture_seconds: dict = {}
 
     @contextlib.contextmanager
     def _building(self, key):
@@ -101,8 +109,10 @@ class GraphCache:
         entry = self._graphs.get(key)
         if entry is None:
             body()
+            t0 = time.perf_counter()
             with self._building(key):
                 self._graphs[key] = self._capture(body)
+            self.capture_seconds[key] = time.perf_counter() - t0
             return
         graph, deltas = entry
         graph.replay()

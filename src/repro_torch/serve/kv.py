@@ -22,15 +22,21 @@ slot's table with no K/V movement and copies only a divergent tail page
 for ~half-view average occupancy, floored at one full view; ``None``
 provisions full stripe capacity.
 
-Stripe mode (``page=None``): each lane pins a full ``max_seq`` stripe.
+Stripe mode (``page=None``, or a family without a page geometry, such
+as a recurrent one, whatever ``page`` asks): each lane pins a full
+``max_seq`` stripe, or its O(1) recurrent state.  The cache may be any
+tree of the family's (a recurrent family's tuple of per-position dicts);
+stripe inserts and releases walk it leaf by leaf along
+`zoo.cache_batch_axes`.
 
 ``cache_kw`` goes to `zoo.make_cache` as it is: an encoder-decoder's
 ``t_enc``, the encoder-output width every slot keeps beside its decoder
 rows (leaves outside the page pool, inserted and reset per slot).
 
 The pool is updated in place where the reference donated its buffers,
-and `reset_all` fills the same storage: the scheduler's captured CUDA
-graphs hold the leaves' addresses.  Host-built tables reach the device
+and `reset_all` fills the same storage with the family's pristine values
+(`zoo.reset_cache`): the scheduler's captured CUDA graphs hold the
+leaves' addresses.  Host-built tables reach the device
 through pinned memory (`device.to_device`), so admission and release never
 wait for a decode chunk in flight; mapping, copy-on-write and sweeps are
 eager writes on the one stream, ordered after whatever is in flight.
@@ -59,18 +65,6 @@ import torch
 from repro_torch import tree as T
 from repro_torch.device import to_device
 from repro_torch.models import paging, zoo
-
-# the pristine value of each cache leaf (`zoo.make_cache`); 0 elsewhere
-_PRISTINE = {"kpos": paging.KPOS_SENTINEL, "bt": paging.SENTINEL_PAGE}
-
-
-def _fill_pristine(cache: dict) -> None:
-    for name, leaf in cache.items():
-        if isinstance(leaf, dict):
-            _fill_pristine(leaf)
-        else:
-            leaf.fill_(_PRISTINE.get(name, 0))
-
 
 class SlotKVCache:
     def __init__(self, cfg, n_slots: int, max_seq: int, dtype=None,
@@ -423,7 +417,7 @@ class SlotKVCache:
             self.cache = zoo.make_cache(self.cfg, self.n_slots, self.max_seq, **kw,
                                         **self._cache_kw)
         else:
-            _fill_pristine(self.cache)
+            zoo.reset_cache(self.cfg, self.cache)
         if self.paged:
             self._free_pages = collections.deque(range(paging.N_RESERVED, self.n_pages))
             self._page_ref[:] = 0

@@ -4,8 +4,10 @@ The decode batch is a fixed-width pool of request slots (`SlotKVCache`).
 Every scheduler step:
 
   1. admission — queued requests are prefilled, grouped by prompt-length
-     bucket and padded with sentinel-masked rows, and inserted into free
-     slots; a paged pool also gates admission on free KV pages.
+     bucket and padded with sentinel-masked rows (`bucket`; a recurrent
+     family, whose state would integrate padded rows, groups by exact
+     length and pads nothing), and inserted into free slots; a paged pool
+     also gates admission on free KV pages.
      `policy="static"` instead gang-admits only when the pool is idle;
   2. decode — a chunk of `decode_chunk` decode steps with on-device
      sampling (greedy, or temperature / top-k / top-p per slot) and
@@ -86,7 +88,15 @@ Admission groups by (bucket, embeds shape), one prefill program per
 (bucket, width, stochastic, embeds shape); embeds requests never take the
 extension path nor register in the prefix index.
 
-What waits for later slices: multi-device meshes.
+A recurrent family (xlstm) cannot bucket: its state would integrate the
+padded rows.  Its prompts group by exact length, a group's width is its
+request count, and a prefill program is one per (exact length, width,
+stochastic); its prefill template's state is reset to pristine before
+each use (`zoo.rewind_cache`).  It has no pages (a requested page falls
+back to stripes), no speculative verify and no prefix sharing.
+
+What waits for later slices: multi-device meshes and the sliding-window
+ring of the hybrid family.
 """
 from __future__ import annotations
 
@@ -133,7 +143,7 @@ class Scheduler:
                  spec: spec_mod.SpecConfig | None = None, packed: str = "auto",
                  prefix_share: bool | str = "auto", prefill_chunk: int | None = None,
                  async_admission: bool | str = "auto", device="cuda", telemetry=None,
-                 flightrec=None, cache_kw: dict | None = None):
+                 flightrec=None, cache_kw: dict | None = None, bucket: bool | None = None):
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown admission policy {policy!r}")
         if async_admission == "auto":
@@ -143,10 +153,18 @@ class Scheduler:
                              "(static gang admission is the synchronous baseline)")
         if packed not in ("auto", "pack"):
             raise ValueError(f"unknown packed-weights mode {packed!r}")
-        if not zoo.supports_bucketed_prefill(cfg) or cfg.window:
+        if cfg.window:
             raise NotImplementedError(
-                f"{cfg.name}: only length-bucketed prefill is ported (no recurrent "
-                "state, no sliding window); see ROADMAP.md Queue 1 item 8")
+                f"{cfg.name}: the sliding-window ring is not ported yet; see ROADMAP.md "
+                "Queue 1 item 8")
+        # prompt-length bucketing: pad admission prefill to power-of-two
+        # buckets (one program per bucket, not per distinct prompt length).
+        # Off for a recurrent family (padded rows would enter the state),
+        # whose groups share an exact length instead
+        can_bucket = zoo.supports_bucketed_prefill(cfg)
+        if bucket and not can_bucket:
+            raise ValueError(f"{cfg.family!r} prefill cannot be length-bucketed")
+        self.bucket = can_bucket if bucket is None else bool(bucket)
         self.device = resolve_device(device)
         self.cfg = cfg
         # observability bundle (serve/telemetry): None/"auto" defers to
@@ -272,7 +290,7 @@ class Scheduler:
                 "config", family=cfg.family, vocab=int(cfg.vocab), max_slots=max_slots,
                 max_seq=max_seq, decode_chunk=decode_chunk, policy=policy,
                 page=self.kv.page if self.kv.paged else None,
-                n_pages=self.kv.n_pages if self.kv.paged else None, bucket=True,
+                n_pages=self.kv.n_pages if self.kv.paged else None, bucket=self.bucket,
                 packed=packed, paged_attn=self.paged_attn, prefix_share=self.prefix_share,
                 prefill_chunk=self.prefill_chunk, async_admission=self.async_admission,
                 rng_seed=rng_seed, sharded=False, spec=spec_cfg)
@@ -435,6 +453,11 @@ class Scheduler:
         """Cache rows this request may legally grow to (page budget)."""
         return self._cache_rows(req) + req.params.max_new_tokens
 
+    def _prompt_len(self, n_tokens: int, extra: int = 0) -> int:
+        """The prefill length of a prompt of `n_tokens`: its bucket
+        (`_bucket_len`), or the exact length when not bucketing."""
+        return self._bucket_len(n_tokens, extra) if self.bucket else n_tokens
+
     def _bucket_len(self, n_tokens: int, extra: int = 0) -> int:
         """Power-of-two prompt-length bucket (from 8), clamped so the bucket
         plus `extra` rows that are not tokens (a vlm's embeds) still fit the
@@ -570,10 +593,10 @@ class Scheduler:
 
             # group the queue head by (prompt-length bucket, embeds shape):
             # one batched prefill per group (one graph per bucket, width and
-            # embeds shape)
+            # embeds shape); without bucketing the exact length groups
             def sig(r):
                 n = len(r.prompt)
-                return (self._bucket_len(n, self._cache_rows(r) - n),
+                return (self._prompt_len(n, self._cache_rows(r) - n),
                         None if r.embeds is None else r.embeds.shape)
 
             head_reserve = self._reserve_rows(self._queue[0])
@@ -627,7 +650,8 @@ class Scheduler:
             cache = io["cache"]
             zoo.rewind_cache(self.cfg, cache)    # a pristine template's offset
             last = zoo.prefill(self.params, self.cfg, io["tokens"], cache,
-                               embeds=io.get("embeds"), n_rows=io["n_rows"])
+                               embeds=io.get("embeds"),
+                               n_rows=io["n_rows"] if self.bucket else None)
             logits = zoo.logits_fn(self.params, self.cfg, last)[:, : self._vocab].float()
             if stochastic:
                 keys = sampler.fold_keys(self._key, io["seeds"],
@@ -645,7 +669,7 @@ class Scheduler:
             cache = io["draft_cache"]
             zoo.rewind_cache(self.drafter.cfg, cache)
             zoo.prefill(self.drafter.params, self.drafter.cfg, io["tokens"], cache,
-                        n_rows=io["d_rows"])
+                        n_rows=io["d_rows"] if self.bucket else None)
         return body
 
     def _admit_group(self, group: list[Request], finished: list[Request]) -> None:
@@ -661,12 +685,15 @@ class Scheduler:
             req.admit_time = t0
         # pad every prompt to the group's shared length bucket and the group
         # itself to a power-of-two width; padded rows/lanes are
-        # sentinel-masked and discarded
+        # sentinel-masked and discarded.  Without bucketing the group's
+        # prompts share their exact length and nothing is padded
         n0 = len(group[0].prompt)
-        s_b = self._bucket_len(n0, self._cache_rows(group[0]) - n0)
-        k_b = 1
-        while k_b < k:
-            k_b *= 2
+        s_b = self._prompt_len(n0, self._cache_rows(group[0]) - n0)
+        k_b = k
+        if self.bucket:
+            k_b = 1
+            while k_b < k:
+                k_b *= 2
         tokens = np.zeros((k_b, s_b), np.int32)
         padded = [group[min(i, k - 1)] for i in range(k_b)]
         for i, r in enumerate(padded):
@@ -896,7 +923,7 @@ class Scheduler:
             remaining = len(req.prompt) - req.prefill_cursor
             width = min(remaining, chunk_w)
             items.append((slot, req, width, width == remaining))
-        w_b = self._bucket_len(max(w for _, _, w, _ in items))
+        w_b = self._prompt_len(max(w for _, _, w, _ in items))
         sample = any(last for _, _, _, last in items)
         stochastic = any(last and req.params.temperature > 0 for _, req, _, last in items)
         s = self.max_slots
@@ -980,7 +1007,7 @@ class Scheduler:
             return
         if self.draft_kv is not None:
             n = len(req.prompt)
-            s_b = self._bucket_len(n)
+            s_b = self._prompt_len(n)
             io = self._prefill_buffers(s_b, 1)
             tokens = np.zeros((1, s_b), np.int32)
             tokens[0, :n] = req.prompt

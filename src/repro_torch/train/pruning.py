@@ -49,7 +49,8 @@ def prune_model(
     every permutation folded into its dense weights; ``masks[i][path]``,
     the stored-orientation (n_in, n_out) keep-mask of block i's projection
     `path`, aligned with `permuted` (an encoder-decoder's masks are
-    ``{"enc": [...], "dec": [...]}``, one such list a stack); a second
+    ``{"enc": [...], "dec": [...]}``, a recurrent family's ``{"stack0":
+    [...], "stack1": [...]}``, one such list a stack); a second
     copy whose planned projections hold their `PackedHiNM` (rows in OCP
     order, `vec_idx` in ICP order), ready to serve through ``hinm_spmm``;
     and the `PruneReport`.
@@ -115,10 +116,19 @@ def apply_masks(model, masks):
     return out
 
 
+def stack_of(tree: dict, key: str):
+    """Layer stack `key` of a params-shaped tree: ``tree[key]``, and for a
+    per-pattern-position stack ``stack{j}`` the reference's
+    ``tree["stacks"][j]``."""
+    if key not in tree and key.startswith("stack") and key[5:].isdigit():
+        return tree["stacks"][int(key[5:])]
+    return tree[key]
+
+
 def get_node(tree: dict, key: str, path: str) -> dict:
     """The dict of a planned projection (``{"w": ..., "b": ...}``) in a
-    params-shaped tree: ``tree[key]`` then `path`'s parts."""
-    node = tree[key]
+    params-shaped tree: stack `key` (`stack_of`) then `path`'s parts."""
+    node = stack_of(tree, key)
     for part in path.split("/"):
         node = node[part]
     return node

@@ -70,10 +70,12 @@ def test_config_equals_reference(name, reduced):
 
 
 def test_load_arch_loads_ported_and_refuses_the_rest():
-    # the vlm and encdec configs: tests/test_torch_vlm.py
+    # the vlm and encdec configs: tests/test_torch_vlm.py; xlstm:
+    # tests/test_torch_xlstm.py
     assert set(base.PORTED_IDS) == {"qwen2_0_5b", *NEW, *MOE, "phi_3_vision_4_2b",
-                                    "deit_base", "seamless_m4t_medium"}
+                                    "deit_base", "seamless_m4t_medium", "xlstm_125m"}
     assert base.load_arch("qwen2_5_14b").draft_arch == "qwen2_0_5b"
+    assert set(base.ARCH_IDS + base.PAPER_IDS) - set(base.PORTED_IDS) == {"recurrentgemma_9b"}
     for name in set(base.ARCH_IDS + base.PAPER_IDS) - set(base.PORTED_IDS):
         with pytest.raises(KeyError, match="ROADMAP.md"):
             base.load_arch(name)
