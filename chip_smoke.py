@@ -26,7 +26,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                noperm - 5e-3), every searched permutation re-checked
                against its constraints, and hinm_spmm held on gyro-pruned
                projections (permuted vec_idx).  It also starts phase 11's
-               layer-0 gyro searches in a child process, and the entry
+               gyro searches in a child process beside its own and, once
+               its own is done, phase 13's in another; and the entry
                points' subprocesses (phases 6 and 10 check them) on a
                thread.
   5. serve   — the gyro-pruned, packed model served by `Scheduler` over the
@@ -83,7 +84,7 @@ Phases (each prints its own lines; any failure exits non-zero):
                twin (torch.matmul): logits must agree.
   8. dense   — RMSNorm and LayerNorm rows bitwise across calls of 1, 4,
                16 and 64 rows at every ported d_model; qwen2.5-14b at its
-               published widths and 12 of its 48 layers, inited
+               published widths and 8 of its 48 layers, inited
                on the card (seeded) and packed with no permutation (peak
                memory, packed and dense bytes); K1 on its projections at B
                4, 16 ("rows", the verify's) and 512, per projection and
@@ -178,6 +179,29 @@ Phases (each prints its own lines; any failure exits non-zero):
                group asserted; the prefill graphs keyed by exact length,
                each prefill length's eager, capture and replay times;
                SpecConfig(k=3) and bucket=True refused.
+ 13. hybrid  — recurrentgemma-9b at full width (d 4096, RG-LRU width 4096,
+               16 heads over one KV head of hd 256, d_ff 12288 gelu, vocab
+               256,000, window 2,048) cut to 8 of its 38 layers: two full
+               (rec, rec, attn) periods and the partial (rec, rec) one,
+               inited on the card (seeded).  Layers 0 (RG-LRU) and 2
+               (attention) gyro-pruned by `prune_model` (MOE_PRUNE_ITERS),
+               then noperm, in a child process started after phase 4 and tied
+               to this phase's model by a digest; the rest packed noperm.
+               K1 on each distinct projection shape of those layers at B 4
+               ("rows": decode, and each step of the sequential verify)
+               and B 2,100 ("mma": the longest prefill); K2 at hd 256, KV
+               1, G 16, window 2,048 over wrapped rings of 128 pages of 16
+               rows, s 1 and 4; a sequential verify bitwise its four decode
+               steps on a live pool whose rings wrap mid-verify; prefill +
+               4 decode steps against the plain versions and a float32
+               twin; 8 greedy requests (prompts of 16-80 tokens, one of
+               2,000 whose decode crosses position 2,048 and one of 2,100,
+               rolled into the ring at prefill; 64 new each) on
+               Scheduler(max_slots=4, max_seq=2304, page=16,
+               decode_chunk=8): graphed = eager = each request alone,
+               exactly; SpecConfig(k=3) fused and unfused equal to plain;
+               launches a decode step (54 K1, 2 K2), a verify (4 steps)
+               and an admission group (54 K1) asserted.
 Each phase prints its seconds.  The line before the last holds the
 per-kernel JSON; the last line is {"ok": true, "device": {...}}.
 """
@@ -407,12 +431,13 @@ def sdpa_view(q, kp, vp, kpos, bt, q_pos, window):
 
 
 def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=None,
-            extend=False, kvh=2, g=7):
+            extend=False, kvh=2, g=7, case=None):
     """Hold K2 against its plain version on a random paged pool (B slots,
-    KV `kvh`, G `g`, page 16; qwen2-0.5b's 2 and 7 unless given) and time
-    kernel, plain version, SDPA over the gathered view, SDPA alone (its
-    inputs gathered and GQA-expanded before the timed window) and the
-    bound."""
+    KV `kvh`, G `g`, page 16; qwen2-0.5b's 2 and 7 unless given), or on
+    the inputs `case` (q, k pool, v pool, kpos, bt, q_pos) of those
+    shapes, and time kernel, plain version, SDPA over the gathered view,
+    SDPA alone (its inputs gathered and GQA-expanded before the timed
+    window) and the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import paged_attn as pa
@@ -420,8 +445,9 @@ def k2_case(label, b, s, window, dtype, seed, n_bt=16, hd=64, full=False, idle=N
 
     page = 16
     n_pages = b * n_bt + 2
-    q, kp, vp, kpos, bt, q_pos = paged_case(b, s, kvh, g, hd, page, n_bt, n_pages, dtype,
-                                            seed, full=full, idle=idle, extend=extend)
+    q, kp, vp, kpos, bt, q_pos = case or paged_case(b, s, kvh, g, hd, page, n_bt, n_pages,
+                                                    dtype, seed, full=full, idle=idle,
+                                                    extend=extend)
     out = pa.paged_decode_attn(q, kp, vp, kpos, bt, q_pos, window=window)
     n_splits, n_tiles = pa.paged_decode_attn.last_splits, pa.paged_decode_attn.last_tiles
     torch.cuda.synchronize()
@@ -1057,7 +1083,7 @@ def rewind(cfg, cache, pos0):
 
 
 @torch.no_grad()
-def spec_bits(cfg, model, cache, tok, drops=None):
+def spec_bits(cfg, model, cache, tok, drops=None, restore=None):
     """The speculative verify against sequential decode on the live pool:
     four greedy `decode_step`s from the pending token (each feeding back
     its argmax), rewound, then one `verify_step` over [pending + the three
@@ -1071,11 +1097,16 @@ def spec_bits(cfg, model, cache, tok, drops=None):
     stream to part by).  For an MoE model `drops` (a `DropCounter`, reset
     by the caller) counts the verify's capacity drops, which part a verify
     row from its decode step (the reference's semantics): with any, the
-    captured verify may differ from the captured decode steps."""
+    captured verify may differ from the captured decode steps.  `restore`
+    puts the pool back as it was before each run (default: `rewind` to
+    its positions, a parallel verifier's sweep)."""
     from repro_torch.models import zoo
     from repro_torch.serve import sampler
 
     pos0 = zoo.cache_position(cfg, cache)
+    if restore is None:
+        def restore():
+            rewind(cfg, cache, pos0)
     b, n = tok.shape[0], SPEC_K + 1
     seq = torch.zeros((b, n + 1), dtype=torch.int32, device="cuda")
     seq[:, :1] = tok
@@ -1098,10 +1129,10 @@ def spec_bits(cfg, model, cache, tok, drops=None):
             run = fn if mode == "eager" else graphed(fn)
             if mode == "graphed":
                 run()                     # eager first use, then captured
-                rewind(cfg, cache, pos0)
+                restore()
             run()
             got.append((dec if fn is decode else ver)[..., : cfg.vocab].clone())
-            rewind(cfg, cache, pos0)
+            restore()
         runs[mode] = got + [seq.clone()]
     (dec_e, ver_e, seq_e), (dec_g, ver_g, seq_g) = runs["eager"], runs["graphed"]
     top2 = torch.topk(dec_e.float(), 2, dim=-1).values
@@ -2482,9 +2513,10 @@ def agree_phase(cfg, model):
 # the served target: qwen2.5-14b at its published widths and depth
 BIG = "qwen2_5_14b"
 # the 14B's served depth (widths full): its 48 layers are cut to 24 to pay
-# for phase 9 (the MoE family), then to 12 for phase 11 (the frontend
-# families), within chip_smoke's time limit
-BIG_LAYERS = 12
+# for phase 9 (the MoE family), to 12 for phase 11 (the frontend
+# families), then to 8 for phase 13 (the hybrid family), within
+# chip_smoke's time limit
+BIG_LAYERS = 8
 # the other dense configs at full width: codeqwen1.5-7b and starcoder2-15b
 # cut to 2 layers (depth only: their weights would not fit beside the
 # rest), bert-base whole
@@ -3957,39 +3989,41 @@ def front_prune_child(out_dir):
         free_card()
 
 
-def front_prune_start():
-    """Start `front_prune_child` in a process of its own; its output goes
-    to chiprun_out/front_prune.txt.  Returns (process, directory)."""
+def front_prune_start(child="front_prune_child", what="frontend layer-0 gyro",
+                      phase_no=11):
+    """Start `child` (`front_prune_child`) in a process of its own; its
+    output goes to `OUT`/<child>.txt.  Returns (process, directory, child,
+    what)."""
     import tempfile
 
     os.makedirs(OUT, exist_ok=True)
-    d = tempfile.mkdtemp(prefix="front_prune_")
-    log = open(os.path.join(OUT, "front_prune.txt"), "w")
+    d = tempfile.mkdtemp(prefix=f"{child}_")
+    log = open(os.path.join(OUT, f"{child}.txt"), "w")
     proc = subprocess.Popen([sys.executable, "-c", "import chip_smoke as c; "
-                             f"c.front_prune_child({d!r})"], cwd=ROOT, stdout=log,
+                             f"c.{child}({d!r})"], cwd=ROOT, stdout=log,
                             stderr=subprocess.STDOUT)
     log.close()
-    print(f"frontend layer-0 gyro started in process {proc.pid} (phase 11 waits for it)",
-          flush=True)
-    return proc, d
+    print(f"{what} started in process {proc.pid} (phase {phase_no} waits for it)", flush=True)
+    return proc, d, child, what
 
 
-def front_prune_wait(child) -> dict:
+def front_prune_wait(child, names=tuple(FRONT_SEEDS)) -> dict:
     """Wait for `front_prune_start`'s process (up to 15 minutes more),
-    print its output and load what it saved: {name: its record}."""
+    print its output and load what it saved: {name: its record}, for each
+    of `names`."""
     import shutil
 
-    proc, d = child
+    proc, d, name, what = child
     t0 = time.perf_counter()
     rc = proc.wait(timeout=900)
-    with open(os.path.join(OUT, "front_prune.txt")) as f:
+    with open(os.path.join(OUT, f"{name}.txt")) as f:
         text = f.read()
-    print(f"frontend layer-0 gyro process: exit {rc}, waited {time.perf_counter() - t0:.1f} "
+    print(f"{what} process: exit {rc}, waited {time.perf_counter() - t0:.1f} "
           "s; its output:\n  " + "\n  ".join(text.strip().splitlines()[-12:]), flush=True)
     if rc != 0:
-        raise AssertionError(f"the frontend layer-0 gyro process failed (exit {rc})")
+        raise AssertionError(f"the {what} process failed (exit {rc})")
     out = {name: torch.load(os.path.join(d, f"{name}.pt"), weights_only=False)
-           for name in FRONT_SEEDS}
+           for name in names}
     shutil.rmtree(d, ignore_errors=True)
     return out
 
@@ -4694,6 +4728,470 @@ def ssm_phase():
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 13: the hybrid family (recurrentgemma-9b)
+# --------------------------------------------------------------------------
+
+HYB = "recurrentgemma_9b"
+HYB_SEED = 18
+# 8 of the 38 layers: two full (rec, rec, attn) periods and the partial
+# (rec, rec) one, so the card runs the leftover-layer path as 38 layers
+# do; the depth is cut to keep the phase within the script's time limit
+HYB_LAYERS = 8
+# the layers the gyro search prunes (in a child process, started in phase
+# 4): layer 0 (RG-LRU) and layer 2 (local attention); layer 1 repeats
+# layer 0's shapes, and its ICP at K 12,288 would add a third of the
+# search's time
+HYB_GYRO = (0, 2)
+# the child's search threads (the engine's default is 8): 13 searches, two
+# of them (wd) ~55% of its host seconds, so 4 threads lose little
+HYB_WORKERS = 4
+# the served geometry: the 2,100-token prompt and HYB_NEW new tokens fit a
+# slot; pages cover the 2,048-row ring
+HYB_GEOM = dict(max_slots=4, max_seq=2304, page=16, decode_chunk=8)
+HYB_NEW = 64
+# the 8 greedy requests' prompt lengths, one arriving a step, all distinct
+# (each admission group is one request, whatever the run's timing): a
+# 2,000-token prompt whose decode crosses position 2,048 (the ring wraps
+# at the config's window) and a 2,100-token one, longer than the window
+# (rolled into the ring at prefill)
+HYB_LENS = (16, 2100, 24, 40, 2000, 64, 33, 80)
+# K1 at one prefill width: the 2,100-token prompt's (a group of one)
+HYB_PREFILL_B = 2100
+# the live pool of the verify check: two slots whose 4 verify steps cross
+# position 2,048, one past the wrap and one short
+HYB_LIVE = (2046, 2047, 40, 2100)
+# the planned projections of a layer, per mixer kind
+HYB_PATHS = {"rec": ("kind_rec/win", "kind_rec/wgate", "kind_rec/wa", "kind_rec/wx",
+                     "kind_rec/wout", "mlp/wu", "mlp/wd"),
+             "attn": ("kind_attn/attn/wq", "kind_attn/attn/wk", "kind_attn/attn/wv",
+                      "kind_attn/attn/wo", "mlp/wu", "mlp/wd")}
+
+
+def hybrid_init(n_layers):
+    """recurrentgemma-9b at full width and `n_layers` layers, inited on the
+    card from its HYB_SEED generator: the same embedding and layers 0 to
+    n - 1 at any depth (drawn in model order)."""
+    import dataclasses
+
+    from repro_torch.configs.base import load_arch
+    from repro_torch.models import zoo
+
+    cfg = dataclasses.replace(load_arch(HYB), n_layers=n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(HYB_SEED)
+    return cfg, zoo.init(cfg, gen, "cuda")
+
+
+def hybrid_layer(model, i):
+    """Layer i: position i % 3's stack, entry i // 3."""
+    return model.stacks[i % len(model.stacks)][i // len(model.stacks)]
+
+
+def hybrid_digest(model) -> list:
+    """The planned weights of the HYB_GYRO layers, summed and maxed in
+    float64: what ties the layers pruned in the child process to this
+    model."""
+    from repro_torch.models import module as M
+
+    return [(i, path, float(w.sum()), float(w.abs().max()))
+            for i in HYB_GYRO for layer in [hybrid_layer(model, i)]
+            for path in HYB_PATHS[layer.kind]
+            for w in [M.get_path(layer, path).w.double()]]
+
+
+def hybrid_prune_child(out_dir):
+    """The HYB_GYRO layers' search, in a process of its own: the model
+    inited as `hybrid_init` does (its first layers are phase 13's), those
+    layers gyro-pruned by `prune_model` at MOE_PRUNE_ITERS as a model of
+    their own (pattern (rec, attn)), then noperm (retained gyro >= noperm
+    - GYRO_MARGIN, every permutation checked); the gyro layers, the
+    reports and `hybrid_digest` saved under `out_dir`.  It runs beside
+    phases 5-12, so it yields the host to them: a lower priority and
+    HYB_WORKERS search threads."""
+    import dataclasses
+
+    from repro_torch.models import hybrid
+    from repro_torch.models import module as M
+    from repro_torch.train import pruning
+
+    os.nice(10)
+    cfg, model = hybrid_init(max(HYB_GYRO) + 1)
+    layers = [hybrid_layer(model, i) for i in HYB_GYRO]
+    cfg2 = dataclasses.replace(cfg, n_layers=len(layers),
+                               block_pattern=tuple(layer.kind for layer in layers))
+    # the search never reads the embedding or the head: one row of each
+    # keeps `prune_model`'s copies of the model small
+    sub = hybrid.Hybrid(M.Embed(model.embed.table[:1].clone()), [[layer] for layer in layers],
+                        model.ln_f, M.Linear(model.lm_head.w[:, :1].clone()))
+    digest = hybrid_digest(model)
+    del model
+    free_card()
+    out = {}
+    for method in ("gyro", "noperm"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, packed, rep = pruning.prune_model(
+            sub, cfg2, method=method, rng=np.random.default_rng(0),
+            ocp_iters=MOE_PRUNE_ITERS[0], icp_iters=MOE_PRUNE_ITERS[1], workers=HYB_WORKERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        kinds = "  ".join(f"{path} {sec:.1f} s" for path, sec in rep.item_seconds.items())
+        print(f"{HYB} layers {HYB_GYRO} prune_model(method={method!r}, {MOE_PRUNE_ITERS[0]}/"
+              f"{MOE_PRUNE_ITERS[1]}): {wall:.1f} s (search {rep.phase_seconds['search']:.1f} "
+              f"s); {rep.searches_run} searches; mean retained {rep.mean_retained:.6f}; host "
+              f"seconds per item: {kinds}", flush=True)
+        out[method] = dict(packed=packed, wall_s=wall, mean_retained=rep.mean_retained,
+                           item_seconds=rep.item_seconds, report=rep)
+    gyro, noperm = out["gyro"]["report"], out["noperm"]["report"]
+    n = check_perms(cfg2, gyro)
+    print(f"{HYB} layers {HYB_GYRO}: gyro {gyro.mean_retained:.6f} vs noperm "
+          f"{noperm.mean_retained:.6f} mean retained (gain "
+          f"{gyro.mean_retained - noperm.mean_retained:+.6f}); {n} searched perms pass their "
+          "constraint checks", flush=True)
+    if not gyro.mean_retained >= noperm.mean_retained - GYRO_MARGIN:
+        raise AssertionError(f"{HYB} gyro retained {gyro.mean_retained} < noperm "
+                             f"{noperm.mean_retained} - {GYRO_MARGIN}")
+    torch.save(dict(layers=list(zip(HYB_GYRO, (s[0] for s in out["gyro"]["packed"].stacks))),
+                    digest=digest, perms_checked=n,
+                    prune={m: {k: v[k] for k in ("wall_s", "mean_retained", "item_seconds")}
+                           for m, v in out.items()}),
+               os.path.join(out_dir, f"{HYB}.pt"))
+
+
+def hybrid_build(pruned):
+    """recurrentgemma-9b at HYB_LAYERS layers on the card (`hybrid_init`);
+    the HYB_GYRO layers from `pruned` (searched in the child process on
+    the same weights, tied to them by `hybrid_digest`); the rest packed
+    by `zoo.pack_params` with no permutation."""
+    from repro_torch.models import zoo
+    from repro_torch.serve import param_bytes
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model = hybrid_init(HYB_LAYERS)
+    torch.cuda.synchronize()
+    info = dict(init_s=time.perf_counter() - t0, held_before=held,
+                init_peak=torch.cuda.max_memory_allocated(), layers=HYB_LAYERS)
+    if hybrid_digest(model) != pruned["digest"]:
+        raise AssertionError(f"{HYB}: the pruned process's layers are not this model's")
+    for i, layer in pruned["layers"]:
+        model.stacks[i % 3][i // 3] = layer
+    t = time.perf_counter()
+    zoo.pack_params(cfg, model)
+    torch.cuda.synchronize()
+    packed_b, dense_b = param_bytes(model)
+    info.update(pack_s=time.perf_counter() - t, peak=torch.cuda.max_memory_allocated(),
+                after=torch.cuda.memory_allocated(), packed_bytes=packed_b, dense_bytes=dense_b,
+                prune=pruned["prune"], perms_checked=pruned["perms_checked"])
+    kinds = [layer.kind for s in range(cfg.n_layers) for layer in [hybrid_layer(model, s)]]
+    print(f"{HYB}: {cfg.n_layers} of 38 layers ({', '.join(kinds)}) d_model {cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.head_dim} rglru {cfg.rglru_dim} d_ff "
+          f"{cfg.d_ff} window {cfg.window} vocab {cfg.vocab} -> {cfg.vocab_padded}, "
+          f"{cfg.norm}/{cfg.act}; layers {HYB_GYRO} gyro "
+          f"{pruned['prune']['gyro']['mean_retained']:.6f} (noperm "
+          f"{pruned['prune']['noperm']['mean_retained']:.6f}, "
+          f"{pruned['prune']['gyro']['wall_s']:.1f} s in its own process); init "
+          f"{info['init_s']:.1f} s, pack {info['pack_s']:.1f} s; weights {gb(packed_b)} packed vs "
+          f"{gb(dense_b)} dense; card memory {gb(held)} held before, peak "
+          f"{gb(info['init_peak'])} after init and {gb(info['peak'])} through pack, "
+          f"{gb(info['after'])} after", flush=True)
+    return cfg, model, info
+
+
+def hybrid_k1(model, gen):
+    """K1 on each distinct projection shape of layer 0 (RG-LRU) and layer 2
+    (attention), both gyro-pruned, at B 4 (decode, and each step of the
+    sequential verify: "rows") and HYB_PREFILL_B (the 2,100-token
+    prefill: "mma"), held against the plain version and timed beside
+    `torch.matmul` and the bound; summed per layer."""
+    from repro_torch.models import module as M
+
+    out, layers = [], {}
+    cases = {}
+    for i in HYB_GYRO:
+        layer = hybrid_layer(model, i)
+        for path in HYB_PATHS[layer.kind]:
+            p = M.get_path(layer, path).w
+            for b in (4, HYB_PREFILL_B):
+                key = (p.n_out, p.n_in, b)
+                if key not in cases:
+                    cases[key] = k1_case(f"hybrid {layer.kind} {path.split('/')[-1]}", p, b, gen)
+                    out.append(cases[key])
+        for b in (4, HYB_PREFILL_B):
+            ws = [M.get_path(layer, path).w for path in HYB_PATHS[layer.kind]]
+            layers[f"{layer.kind} B{b}"] = {k: sum(cases[(w.n_out, w.n_in, b)][k] for w in ws)
+                                            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    for k, v in layers.items():
+        kind, b = k.split()
+        print(f"K1 hybrid, the {len(HYB_PATHS[kind])} projections of a {kind} layer at {b}: "
+              f"kernel {v['ms'] * 1e3:.1f} us, plain {v['plain_ms'] * 1e3:.1f} us, matmul "
+              f"{v['library_ms'] * 1e3:.1f} us, bound {v['bound_ms'] * 1e3:.1f} us", flush=True)
+    return out, layers
+
+
+def ring_case(b, s, kvh, g, hd, page, view, dtype, seed):
+    """K2's inputs on rings that have wrapped: every slot's whole table
+    (view / page pages) allocated, its s queries ending at a position
+    between view + 52 and view + 1,000, each ring row holding the latest
+    position at or before the last query that maps onto it."""
+    from repro_torch.models import paging
+
+    rng = np.random.default_rng(seed)
+    n_bt = view // page
+    n_pages = b * n_bt + paging.N_RESERVED
+    kp, vp = (rng.normal(size=(n_pages, page, kvh, hd)).astype(np.float32) for _ in range(2))
+    kpos = np.full((n_pages, page), paging.KPOS_SENTINEL, np.int32)
+    bt = (rng.permutation(np.arange(paging.N_RESERVED, n_pages)).reshape(b, n_bt)
+          .astype(np.int32))
+    positions = []
+    for bi in range(b):
+        last = int(rng.integers(view + 52, view + 1001))
+        for r in range(view):
+            kpos[bt[bi, r // page], r % page] = last - (last - r) % view
+        positions.append(list(range(last - s + 1, last + 1)))
+    q = rng.normal(size=(b, s, kvh * g, hd)).astype(np.float32)
+
+    def dev(a, dt=None):
+        t = torch.from_numpy(a).cuda()
+        return t.to(dt) if dt is not None else t
+
+    return (dev(q, dtype), dev(kp, dtype), dev(vp, dtype), dev(kpos), dev(bt),
+            dev(np.asarray(positions, np.int32)))
+
+
+def hybrid_k2(cfg):
+    """K2 at recurrentgemma's head layout (KV 1, G 16, hd 256) with its
+    window (2,048) over wrapped rings of the served page (16: 128 table
+    entries), B 4, bf16: s 1 (decode, and each step of the sequential
+    verify) and s 4 (a kernel-only case)."""
+    page, view = HYB_GEOM["page"], cfg.window
+    g = cfg.n_heads // cfg.n_kv_heads
+    return [k2_case(f"hybrid ring s={s}", 4, s, cfg.window, cfg.dtype, None, n_bt=view // page,
+                    hd=cfg.head_dim, kvh=cfg.n_kv_heads, g=g,
+                    case=ring_case(4, s, cfg.n_kv_heads, g, cfg.head_dim, page, view, cfg.dtype,
+                                   50 + s))
+            for s in (1, SPEC_K + 1)]
+
+
+def hybrid_agree(cfg, model, n_prompt=40, n_dec=4):
+    """A teacher-forced prefill + `n_dec` paged decode steps through the
+    kernels, against the plain versions and a float32 twin of the same
+    masked weights (`f32_twin`)."""
+    rng = np.random.default_rng(23)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, n_prompt)).astype(np.int32)).cuda()
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab, (n_dec, 2, 1)).astype(np.int32)).cuda()
+    a = teacher_forced_logits(cfg, model, prompt, forced, "auto")
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("hybrid: non-finite logits on the kernel path")
+    out = {"plain": compare_logits(f"hybrid: kernels vs plain versions, prefill + {n_dec} "
+                                   "paged decode steps", a,
+                                   teacher_forced_logits(cfg, model, prompt, forced, "torch"))}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32, twin = f32_twin(cfg, model)
+    out["f32"] = compare_logits("hybrid: kernels vs a float32 twin of the masked weights "
+                                "(TF32 off)", a,
+                                teacher_forced_logits(cfg32, twin, prompt, forced, "torch"),
+                                tol=F32_TOL)
+    del twin
+    free_card()
+    return out
+
+
+@torch.no_grad()
+def hybrid_spec_bits(cfg, model):
+    """`spec_bits` on a live pool of the served geometry: the HYB_LIVE
+    prompts prefilled one by one (exact length) and inserted; the verify's
+    four decode steps cross position 2,048 in two slots.  The pool is put
+    back from a copy of every leaf between runs (a sequential verify
+    restores from its own snapshots, which `spec_bits` does not keep)."""
+    from repro_torch import tree as T
+    from repro_torch.models import zoo
+    from repro_torch.serve import sampler
+    from repro_torch.serve.kv import SlotKVCache
+
+    kv = SlotKVCache(cfg, len(HYB_LIVE), HYB_GEOM["max_seq"], page=HYB_GEOM["page"],
+                     n_pages=None, device="cuda")
+    rng = np.random.default_rng(29)
+    toks = []
+    for n in HYB_LIVE:
+        st = kv.template(1)
+        prompt = torch.from_numpy(rng.integers(1, cfg.vocab, (1, n)).astype(np.int32)).cuda()
+        last = zoo.prefill(model, cfg, prompt, st)
+        toks.append(sampler.greedy(zoo.logits_fn(model, cfg, last)[:, : cfg.vocab].float()))
+        kv.insert(kv.acquire(), st, n, reserve=n + SPEC_K + 2)
+    saved = [t.clone() for t in T.leaves(kv.cache)]
+
+    def restore():
+        for t, s in zip(T.leaves(kv.cache), saved):
+            t.copy_(s)
+
+    bits = spec_bits(cfg, model, kv.cache, torch.cat(toks)[:, None], restore=restore)
+    if not (bits["bit_equal"] and bits["graph_bit_equal"]):
+        raise AssertionError("hybrid: a sequential verify row is not bitwise its decode step")
+    del kv, saved
+    free_card()
+    return bits
+
+
+def hybrid_requests(vocab):
+    """The 8 greedy requests (HYB_LENS), HYB_NEW new tokens each, one
+    arriving a step."""
+    from repro_torch.serve import Request, SamplingParams
+
+    rng = np.random.default_rng(37)
+    prompts = [rng.integers(1, vocab, n).astype(np.int32) for n in HYB_LENS]
+
+    def make():
+        return [Request(rid=i, prompt=p, params=SamplingParams(max_new_tokens=HYB_NEW),
+                        arrival=i) for i, p in enumerate(prompts)]
+    return make
+
+
+@torch.no_grad()
+def hybrid_isolated(cfg, model, sched, reqs):
+    """Each request alone: its prompt prefilled at width 1 (as the
+    scheduler's groups of one are) and inserted into a pool of the served
+    geometry, then a captured greedy decode step over the pool's 4 lanes
+    (the other three idle), fed its own tokens until its budget or EOS."""
+    from repro_torch.models import zoo
+    from repro_torch.serve import sampler
+    from repro_torch.serve.kv import SlotKVCache
+
+    kv = SlotKVCache(cfg, HYB_GEOM["max_slots"], HYB_GEOM["max_seq"], page=HYB_GEOM["page"],
+                     n_pages=None, device="cuda")
+    tok = torch.zeros((HYB_GEOM["max_slots"], 1), dtype=torch.int32, device="cuda")
+    nxt = torch.zeros((HYB_GEOM["max_slots"],), dtype=torch.int32, device="cuda")
+
+    def body():
+        nxt.copy_(sampler.greedy(zoo.decode_step(model, cfg, tok, kv.cache)[:, : cfg.vocab]
+                                 .float()))
+
+    step = graphed(body)
+    streams = []
+    for r in reqs:
+        st = kv.template(1)
+        last = zoo.prefill(model, cfg, torch.from_numpy(r.prompt[None]).cuda(), st)
+        out = [int(sampler.greedy(zoo.logits_fn(model, cfg, last)[:, : cfg.vocab].float())[0])]
+        slot = kv.acquire()
+        kv.insert(slot, st, len(r.prompt), reserve=len(r.prompt) + HYB_NEW)
+        while len(out) < r.params.max_new_tokens and out[-1] != sched.default_eos:
+            tok[slot, 0] = out[-1]
+            step()
+            out.append(int(nxt[slot]))
+        kv.release(slot)
+        streams.append(out)
+    del kv
+    free_card()
+    return streams
+
+
+def hybrid_launches(label, cfg, line, reqs, verify=False):
+    """The run's launches, counted through replays, against what its
+    programs make: per decode step every layer's planned projections on K1
+    (7 an RG-LRU layer, 6 an attention layer) and each attention layer's
+    K2; a sequential verify is SPEC_K + 1 decode steps; per admission
+    group the prefill's K1 (its attention is the stripe's, no K2)."""
+    from repro_torch.models import hybrid, zoo
+
+    step_k1 = sum(len(c.graph.nodes) * n for c, n in zip(zoo.perm_graph(cfg).containers,
+                                                          hybrid.counts(cfg)))
+    step_k2 = hybrid.counts(cfg)[hybrid.pattern(cfg).index("attn")]
+    fwd = line["verify_steps"] * (SPEC_K + 1) if verify else line["decode_steps"]
+    groups = len(set(admission_groups(reqs).values()))
+    want = (fwd * step_k1 + groups * step_k1, fwd * step_k2)
+    print(f"{label}: launches hinm_spmm {line['hinm_spmm']}, paged_decode_attn "
+          f"{line['paged_decode_attn']} (want {want[0]}, {want[1]}: {step_k1} and {step_k2} a "
+          f"decode step x {fwd}{' (verify forwards x 4 steps)' if verify else ''}, {step_k1} K1 "
+          f"an admission group x {groups})", flush=True)
+    if (line["hinm_spmm"], line["paged_decode_attn"]) != want:
+        raise AssertionError(f"{label}: launches differ from the programs' count")
+    return dict(per_step_k1=step_k1, per_step_k2=step_k2, groups=groups)
+
+
+def hybrid_serve(cfg, model):
+    """The 8 greedy requests on `Scheduler(**HYB_GEOM)` (paged, exact-length
+    admission): graphed and as the eager twin, then SpecConfig(k=3) fused
+    and unfused (the sequential verify), graphed.  Streams: graphed =
+    eager = the isolated path, and every spec run = plain, exactly;
+    launches asserted."""
+    from repro_torch.serve import Scheduler, SpecConfig
+
+    make = hybrid_requests(cfg.vocab)
+    plain = Scheduler(cfg, model, **HYB_GEOM)
+    kv = plain.kv
+    if not (kv.paged and kv.view_len == cfg.window and plain.bucket is False):
+        raise AssertionError("hybrid: the pool is not a paged ring or the prefill is bucketed")
+    if not (max(HYB_LENS) > cfg.window and any(n < cfg.window < n + HYB_NEW for n in HYB_LENS)):
+        raise AssertionError("hybrid: no prompt is rolled into the ring or none decodes across it")
+    print(f"hybrid scheduler: KV pool {gb(kv.pool_bytes())} ({kv.n_pages} pages of {kv.page} "
+          f"rows; a slot's ring {kv.view_len} rows, {kv.pages_needed(10**6)} pages)", flush=True)
+    runs = {"plain": serve_run("hybrid plain", plain, make)}
+    reqs, line = runs["plain"]["graphed"]
+    line["launch_plan"] = hybrid_launches("hybrid plain", cfg, line, reqs)
+    eager = runs["plain"]["eager"][0]
+    iso = hybrid_isolated(cfg, model, plain, reqs)
+    same = {"eager": sum(a.tokens == b.tokens for a, b in zip(eager, reqs)),
+            "isolated": sum(a == b.tokens for a, b in zip(iso, reqs))}
+    print(f"hybrid graphed streams equal to the eager twin's {same['eager']}/{len(reqs)}, to the "
+          f"isolated path's {same['isolated']}/{len(reqs)}", flush=True)
+    if min(same.values()) != len(reqs):
+        raise AssertionError(f"hybrid: graphed, eager and isolated streams differ: {same}")
+    before_after("hybrid plain", runs["plain"])
+    out = {"streams_equal": same, "requests": len(reqs), "spec": {}}
+    for fused in (True, False):
+        name = f"spec {'fused' if fused else 'unfused'}"
+        spec = Scheduler(cfg, model, spec=SpecConfig(k=SPEC_K, fused=fused), **HYB_GEOM)
+        runs[name] = serve_run(f"hybrid {name}", spec, make, eager=False)
+        sreqs, sline = runs[name]["graphed"]
+        sline["launch_plan"] = hybrid_launches(f"hybrid {name}", cfg, sline, sreqs, verify=True)
+        n = sum(a.tokens == b.tokens for a, b in zip(sreqs, reqs))
+        out["spec"][name] = n
+        print(f"hybrid {name}: streams equal to plain {n}/{len(reqs)}; acceptance "
+              f"{sline['acceptance_rate']:.3f}", flush=True)
+        if n != len(reqs):
+            raise AssertionError(f"hybrid {name}: streams differ from plain greedy")
+        del spec
+        free_card()
+    out["runs"] = {k: {m: ln for m, (_, ln) in v.items()} for k, v in runs.items()}
+    del plain
+    free_card()
+    return out
+
+
+def hybrid_phase(child):
+    """Phase 13: recurrentgemma-9b at full width (HYB_LAYERS layers) on the
+    card: build with the child's gyro layers, kernels at its shapes, a
+    sequential verify against decode across the ring's wrap, agreement,
+    serving."""
+    t0 = time.perf_counter()
+    pruned = front_prune_wait(child, (HYB,))[HYB]
+    parts = {"wait for the gyro process": time.perf_counter() - t0}
+    t = time.perf_counter()
+    cfg, model, info = hybrid_build(pruned)
+    parts["build"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(HYB_SEED + 1)
+    out = {"build": info}
+    out["k1"], out["k1_layers"] = hybrid_k1(model, gen)
+    out["k2"] = hybrid_k2(cfg)
+    parts["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["spec_bits"] = hybrid_spec_bits(cfg, model)
+    out["agree"] = hybrid_agree(cfg, model)
+    parts["agree"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["serve"] = hybrid_serve(cfg, model)
+    parts["serve"] = time.perf_counter() - t
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del model
+    free_card()
+    out["parts_s"] = parts
+    print("hybrid parts: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()), flush=True)
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -4738,6 +5236,10 @@ def main() -> int:
     model, pruned, k1_gyro = prune_phase(cfg, model, gen)
     k3.append(k3_path)
     k1 += k1_gyro
+    # phase 13's gyro search, in a child process from here on: beside
+    # phase 4's own search it slowed that from 226 to 395 s
+    hchild = front_prune_start("hybrid_prune_child", f"{HYB} layers {HYB_GYRO} gyro", 13)
+    atexit.register(lambda: hchild[0].poll() is None and hchild[0].kill())
 
     phase("5. serve")
     served = serve_phase(cfg, model)
@@ -4765,10 +5267,13 @@ def main() -> int:
 
     phase("12. ssm")
     ssm = ssm_phase()
+
+    phase("13. hybrid")
+    hyb = hybrid_phase(hchild)
     phase()
 
-    front_k1s = [c for f in front.values() for c in f["k1"]]
-    front_k2s = [c for f in front.values() for c in f["k2"]]
+    front_k1s = [c for f in front.values() for c in f["k1"]] + hyb["k1"]
+    front_k2s = [c for f in front.values() for c in f["k2"]] + hyb["k2"]
     k2_rep = next(c for c in k2 if c["case"] == "s=1 window=0" and c["dtype"] == "bfloat16")
     k2_verify = next(c for c in k2 if c["case"] == "verify s=4" and c["dtype"] == "bfloat16")
     k2_ext = {f"s={c['s']} {c['dtype']}": {k: c[k] for k in (
@@ -4783,7 +5288,8 @@ def main() -> int:
              | {"0.5B self-draft": dense["self_draft"]["line"]}
              | {f"granite {k}": v["graphed"] for k, v in moe["serve"]["runs"].items()}
              | {f"{m} {k}": v["graphed"] for m, f in front.items()
-                for k, v in f["serve"]["runs"].items()})
+                for k, v in f["serve"]["runs"].items()}
+             | {f"hybrid {k}": v["graphed"] for k, v in hyb["serve"]["runs"].items()})
     by_path = {name: {p: paths[p][name] for p in paths}
                for name in ("hinm_spmm", "paged_decode_attn")}
     # xlstm has no attention: K1 alone runs on its path (K2's 0 asserted)
@@ -4811,6 +5317,11 @@ def main() -> int:
                             per_admission_group=ssm["serve"]["per_step_k1"],
                             timed="the 5 planned projections of a block (768x768 each), bf16, "
                                   f"at B 4 and B {SSM_PREFILL_B}")},
+             hybrid={HYB: dict(layers=hyb["k1_layers"], launch_plan=hyb["serve"]["runs"][
+                 "plain"]["graphed"]["launch_plan"],
+                 timed="a layer's planned projections (RG-LRU: 5 of 4096x4096, wu 12288x4096, "
+                       "wd 4096x12288; attention: q/o 4096x4096, k/v 256x4096, wu, wd; layers 0 "
+                       f"and 2 gyro-pruned), bf16, at B 4 (rows) and B {HYB_PREFILL_B} (mma)")},
              prefill=k1_prefill_layer(k1, served["prefill_k1_per_admission"]),
              extension=layer.pop("extension"),
              **{**layer,
@@ -4831,6 +5342,10 @@ def main() -> int:
                  "KV", "G", "hd", "n_splits", "n_tiles", "ms", "plain_ms", "library_ms",
                  "sdpa_only_ms", "bound_ms", "bound_by", "max_abs_err")} for c in f["k2"]}
                  for f in front.values()},
+             hybrid={HYB: {f"s={c['s']}": {k: c[k] for k in (
+                 "window", "KV", "G", "hd", "n_bt", "n_splits", "n_tiles", "ms", "plain_ms",
+                 "library_ms", "sdpa_only_ms", "bound_ms", "bound_by", "max_abs_err",
+                 "rows_bit_equal_s1") if k in c} for c in hyb["k2"]}},
              verify={k: k2_verify[k] for k in ("s", "n_splits", "ms", "plain_ms", "library_ms",
                                                "sdpa_only_ms", "bound_ms", "bound_by",
                                                "max_abs_err", "rows_bit_equal_s1")},
@@ -4966,6 +5481,19 @@ def main() -> int:
                       f"{ln['p50_step_ms']:.2f} ms, p50 TTFT {ln['p50_ttft_ms']:.1f} ms, device "
                       f"{ln['device_step_ms']:.3f} ms a step, idle {ln['idle_share']:.1%}"
                       for m, ln in sv["runs"]["plain"].items()))
+    hb, hs = hyb["build"], hyb["serve"]
+    print(f"hybrid: {HYB} at {hb['layers']} layers {gb(hb['packed_bytes'])} packed vs "
+          f"{gb(hb['dense_bytes'])} dense, peak {gb(hyb['peak_bytes'])}; layers {HYB_GYRO} gyro "
+          f"{hb['prune']['gyro']['wall_s']:.1f} s, retained "
+          f"{hb['prune']['gyro']['mean_retained']:.6f} vs noperm "
+          f"{hb['prune']['noperm']['mean_retained']:.6f}; agree plain "
+          f"{hyb['agree']['plain'][0]:.2e}, f32 {hyb['agree']['f32'][0]:.2e}; sequential verify "
+          f"bitwise decode {hyb['spec_bits']['bit_equal']}; graphed = eager = isolated "
+          f"{hs['streams_equal']}/{hs['requests']}, spec = plain {hs['spec']}; "
+          + "; ".join(f"{k} {m} {ln['decode_tok_s']:.1f} decode tok/s, p50 step "
+                      f"{ln['p50_step_ms']:.2f} ms, p50 TTFT {ln['p50_ttft_ms']:.1f} ms, device "
+                      f"{ln['device_step_ms']:.3f} ms a step, idle {ln['idle_share']:.1%}"
+                      for k, v in hs["runs"].items() for m, ln in v.items()))
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in SECONDS.items()))
     print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s")
     print(smi)

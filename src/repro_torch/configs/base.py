@@ -1,7 +1,7 @@
 """Architecture config schema (port of `repro.configs.base`).
 
-Only the ported configurations load; the others wait for their slice
-(ROADMAP.md, Queue 1 item 8) and `load_arch` raises `KeyError` for them.
+Every configuration of the reference package loads (`PORTED_IDS`);
+`load_arch` raises `KeyError` for an unknown name.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.core.types import HiNMConfig
 
-# the reference package's configs; only PORTED_IDS load here
+# the reference package's configs, every one ported
 ARCH_IDS = (
     "qwen2_5_14b",
     "starcoder2_15b",
@@ -27,15 +27,13 @@ ARCH_IDS = (
     "granite_moe_3b_a800m",
 )
 PAPER_IDS = ("bert_base", "deit_base")
-PORTED_IDS = ("qwen2_0_5b", "qwen2_5_14b", "codeqwen1_5_7b", "starcoder2_15b", "bert_base",
-              "granite_moe_3b_a800m", "grok_1_314b", "phi_3_vision_4_2b", "deit_base",
-              "seamless_m4t_medium", "xlstm_125m")
+PORTED_IDS = ARCH_IDS + PAPER_IDS
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                  # dense | moe | vlm | encdec | ssm (ported); hybrid
+    family: str                  # dense | moe | vlm | encdec | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -108,10 +106,6 @@ class ArchConfig:
 def load_arch(name: str) -> ArchConfig:
     """Load `src/repro_torch/configs/<name>.py` and return its CONFIG."""
     if name not in PORTED_IDS:
-        known = name in ARCH_IDS + PAPER_IDS
-        raise KeyError(
-            f"arch {name!r} " + ("is not ported yet; see ROADMAP.md (Queue 1) "
-                                 if known else "is unknown; ")
-            + f"ported: {PORTED_IDS}")
+        raise KeyError(f"arch {name!r} is unknown; ported: {PORTED_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{name}")
     return mod.CONFIG

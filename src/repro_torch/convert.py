@@ -2,8 +2,8 @@
 
 `params_from_numpy` takes the reference params tree after
 ``jax.tree.map(np.asarray, params)``: a nested dict whose ``blocks`` leaves
-(an encoder-decoder's ``enc`` and ``dec`` leaves; a recurrent family's
-``stacks[j]``, one tree a pattern position) are layer-stacked
+(an encoder-decoder's ``enc`` and ``dec`` leaves; a recurrent or hybrid
+family's ``stacks[j]``, one tree a pattern position) are layer-stacked
 ``(L, ...)``, possibly with packed leaves whose fields are numpy arrays.  Packed leaves are read by duck typing (``vals``,
 ``vec_idx``, ``nm_idx``, ``n_out``, ``n_in``, ``config.{v,n,m,
 vector_sparsity}``), so the port never imports the reference.  The
@@ -22,7 +22,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import module as M
 from repro_torch.models import encdec
 from repro_torch.models import moe as MOE
-from repro_torch.models import transformer, xlstm_model
+from repro_torch.models import hybrid, transformer, xlstm_model
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -101,6 +101,16 @@ def _xlstm_from_numpy(cfg, tree: dict, device) -> xlstm_model.XLSTM:
                              _norm(tree["ln_f"], None, device), _head(tree["lm_head"], device))
 
 
+def _hybrid_from_numpy(cfg, tree: dict, device) -> hybrid.Hybrid:
+    stacks = [[hybrid.layer_from(kind, node, i, lin=lambda n, i: _linear(n, i, device),
+                                 norm=lambda n, i: _norm(n, i, device),
+                                 leaf=lambda a, i: to_tensor(a[i], device))
+               for i in range(n)]
+              for kind, n, node in zip(hybrid.pattern(cfg), hybrid.counts(cfg), tree["stacks"])]
+    return hybrid.Hybrid(M.Embed(to_tensor(tree["embed"]["table"], device)), stacks,
+                         _norm(tree["ln_f"], None, device), _head(tree["lm_head"], device))
+
+
 def params_from_numpy(cfg, tree: dict, device="cuda"):
     """Build the port's model holding the same numbers as `tree`."""
     device = resolve_device(device)
@@ -108,6 +118,8 @@ def params_from_numpy(cfg, tree: dict, device="cuda"):
         return _encdec_from_numpy(cfg, tree, device)
     if cfg.family == "ssm":
         return _xlstm_from_numpy(cfg, tree, device)
+    if cfg.family == "hybrid":
+        return _hybrid_from_numpy(cfg, tree, device)
     blk = tree["blocks"]
     blocks = []
     for i in range(cfg.n_layers):
@@ -127,11 +139,20 @@ def params_from_numpy(cfg, tree: dict, device="cuda"):
     )
 
 
-def _stack_masks(blk: dict, n: int, device) -> list[dict[str, torch.Tensor]]:
-    return [{f"{grp}/{name}": to_tensor(node["w"][i], device)
-             for grp in ("attn", "xattn", "mlp", "moe") if grp in blk
-             for name, node in blk[grp].items() if node.get("w") is not None}
-            for i in range(n)]
+def _mask_paths(node: dict, prefix: str = "") -> list[tuple[str, dict]]:
+    """(path, projection node) of every mask in a stacked mask tree: each
+    dict holding a ``w`` that is not None, however deep."""
+    if node.get("w") is not None:
+        return [(prefix, node)]
+    return [hit for name, sub in node.items() if isinstance(sub, dict)
+            for hit in _mask_paths(sub, f"{prefix}/{name}" if prefix else name)]
+
+
+def _stack_masks(blk: dict, device) -> list[dict[str, torch.Tensor]]:
+    """One {path: mask} dict per layer of a layer-stacked mask tree."""
+    paths = _mask_paths(blk)
+    return [{path: to_tensor(node["w"][i], device) for path, node in paths}
+            for i in range(len(paths[0][1]["w"]))]
 
 
 def masks_from_numpy(cfg, tree: dict, device="cuda"):
@@ -139,16 +160,11 @@ def masks_from_numpy(cfg, tree: dict, device="cuda"):
     ``jax.tree.map(np.asarray, masks)``) as the port's: one {path:
     stored-orientation (n_in, n_out) bool mask} dict per block; for an
     encoder-decoder, ``{"enc": [...], "dec": [...]}`` of such lists, for a
-    recurrent family ``{"stack0": [...], "stack1": [...]}`` (the
-    reference's ``stacks[j]``)."""
+    recurrent or hybrid family ``{"stack0": [...], "stack1": [...], ...}``
+    (the reference's ``stacks[j]``)."""
     device = resolve_device(device)
-    if cfg.family == "ssm":
-        return {f"stack{j}": [{name: to_tensor(node["w"][i], device)
-                               for name, node in stack.items()
-                               if isinstance(node, dict) and node.get("w") is not None}
-                              for i in range(xlstm_model.n_periods(cfg))]
-                for j, stack in enumerate(tree["stacks"])}
+    if cfg.family in ("ssm", "hybrid"):
+        return {f"stack{j}": _stack_masks(stack, device) for j, stack in enumerate(tree["stacks"])}
     if cfg.family == "encdec":
-        return {"enc": _stack_masks(tree["enc"], encdec.n_enc_layers(cfg), device),
-                "dec": _stack_masks(tree["dec"], cfg.n_layers, device)}
-    return _stack_masks(tree["blocks"], cfg.n_layers, device)
+        return {"enc": _stack_masks(tree["enc"], device), "dec": _stack_masks(tree["dec"], device)}
+    return _stack_masks(tree["blocks"], device)

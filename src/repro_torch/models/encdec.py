@@ -115,24 +115,12 @@ def params_of(model: EncDec) -> dict:
     return tree
 
 
-def _lin(node, i=None) -> M.Linear:
-    pick = (lambda a: a) if i is None else (lambda a: a[i])
-    b = node.get("b")
-    return M.Linear(pick(node["w"]), None if b is None else pick(b))
-
-
-def _norm(node, i=None) -> M.Norm:
-    pick = (lambda a: a) if i is None else (lambda a: a[i])
-    bias = node.get("bias")
-    return M.Norm(pick(node["scale"]), None if bias is None else pick(bias))
-
-
 def _attn(node, i) -> L.Attention:
-    return L.Attention(*(_lin(node[n], i) for n in ("wq", "wk", "wv", "wo")))
+    return L.Attention(*(M.linear_of(node[n], i) for n in ("wq", "wk", "wv", "wo")))
 
 
 def _mlp(node, i) -> L.MLP:
-    return L.MLP(**{n: _lin(sub, i) for n, sub in node.items()})
+    return L.MLP(**{n: M.linear_of(sub, i) for n, sub in node.items()})
 
 
 def from_params(cfg, params: dict) -> EncDec:
@@ -141,13 +129,13 @@ def from_params(cfg, params: dict) -> EncDec:
     enc = T.map(lambda t: t.unbind(0), params["enc"])
     dec = T.map(lambda t: t.unbind(0), params["dec"])
     return EncDec(
-        _lin(params["frontend_proj"]), M.Embed(params["embed"]["table"]),
-        [EncLayer(_norm(enc["ln1"], i), _attn(enc["attn"], i), _norm(enc["ln2"], i),
+        M.linear_of(params["frontend_proj"]), M.Embed(params["embed"]["table"]),
+        [EncLayer(M.norm_of(enc["ln1"], i), _attn(enc["attn"], i), M.norm_of(enc["ln2"], i),
                   _mlp(enc["mlp"], i)) for i in range(n_enc_layers(cfg))],
-        [DecLayer(_norm(dec["ln1"], i), _attn(dec["attn"], i), _norm(dec["ln_x"], i),
-                  _attn(dec["xattn"], i), _norm(dec["ln2"], i), _mlp(dec["mlp"], i))
+        [DecLayer(M.norm_of(dec["ln1"], i), _attn(dec["attn"], i), M.norm_of(dec["ln_x"], i),
+                  _attn(dec["xattn"], i), M.norm_of(dec["ln2"], i), _mlp(dec["mlp"], i))
          for i in range(cfg.n_layers)],
-        _norm(params["ln_enc"]), _norm(params["ln_f"]), _lin(params["lm_head"]))
+        M.norm_of(params["ln_enc"]), M.norm_of(params["ln_f"]), M.linear_of(params["lm_head"]))
 
 
 def _cross_attention(p: L.Attention, x, enc_out, cfg, enc_len=None, backend: str = "auto",

@@ -68,6 +68,14 @@ def linear(p: Linear, x: torch.Tensor, backend: str = "auto",
     return y
 
 
+def linear_of(node: dict, i: int | None = None) -> Linear:
+    """A Linear over a params-tree node's ``w`` (and ``b``): layer i's
+    views of layer-stacked leaves where `i` is given."""
+    pick = (lambda a: a) if i is None else (lambda a: a[i])
+    b = node.get("b")
+    return Linear(pick(node["w"]), None if b is None else pick(b))
+
+
 def uniform_init(n_in, n_out, dtype, generator, device):
     scale = (6.0 / (n_in + n_out)) ** 0.5
     u = torch.rand((n_in, n_out), generator=generator, device=device)
@@ -102,6 +110,14 @@ class Norm(nn.Module):
         super().__init__()
         self.register_buffer("scale", scale)
         self.register_buffer("bias", bias)
+
+
+def norm_of(node: dict, i: int | None = None) -> Norm:
+    """A Norm over a params-tree node's ``scale`` (and ``bias``), as
+    `linear_of`."""
+    pick = (lambda a: a) if i is None else (lambda a: a[i])
+    bias = node.get("bias")
+    return Norm(pick(node["scale"]), None if bias is None else pick(bias))
 
 
 def rmsnorm_init(d: int, dtype=torch.float32, *, device) -> Norm:

@@ -250,6 +250,65 @@ def rollback_attn_stripe(cache: dict, pos0: torch.Tensor, keep: torch.Tensor, n:
     return cache
 
 
+# A sequential verifier (the hybrid family's) writes its rows through S
+# single-token decode steps, so on a wrapped ring a step may overwrite a
+# row that is still live.  Each step first snapshots the row it is about
+# to write; the rollback puts the rejected steps' snapshots back.
+
+
+def _row_loc_at(cache: dict, pos: torch.Tensor, window: bool):
+    """Per-slot index pair of the row a single-token decode step at
+    position ``pos`` (B,) writes: (page, offset) for a paged stack (the
+    scratch page outside the allocation), (lane, slot) for a stripe (the
+    ring slot ``pos % smax``, or ``pos`` clamped at the stripe end, as the
+    write clamps it)."""
+    if is_paged(cache):
+        page = cache["k"].shape[2]
+        phys, off, valid = spec_row_locations(cache["bt"][0], cache["alloc"][0], pos, 1, page,
+                                              window)
+        return torch.where(valid, phys, SCRATCH_PAGE)[:, 0].long(), off[:, 0].long()
+    smax = cache["k"].shape[2]
+    idx = torch.remainder(pos, smax) if window else torch.clamp(pos, 0, smax - 1)
+    return torch.arange(pos.shape[0], device=pos.device), idx.long()
+
+
+def snapshot_attn_row(cache: dict, window: bool) -> dict:
+    """A copy of the row the next decode step overwrites, per k/v/kpos
+    leaf, (L, B, ...)."""
+    i, j = _row_loc_at(cache, cache["pos"][0], window)
+    return {name: cache[name][:, i, j] for name in ("k", "v", "kpos")}
+
+
+def restore_attn_rows(cache: dict, snaps: dict, pos0: torch.Tensor, keep: torch.Tensor,
+                      n: int, window: bool) -> dict:
+    """Undo the rejected suffix of ``n`` sequential decode writes from
+    ``pos0`` (B,), in place: rows of steps ``i >= keep`` return to their
+    pre-step snapshots (``snaps`` leaves step-stacked ``(n, L, B, ...)``)
+    and ``pos`` rewinds to ``pos0 + keep``.  Restores run in reverse step
+    order, so a row written twice (the stripe end's clamp) gets back what
+    its first write clobbered."""
+    for i in reversed(range(n)):
+        ii, jj = _row_loc_at(cache, pos0 + i, window)
+        drop = i >= keep                                     # (B,)
+        for name in ("k", "v", "kpos"):
+            leaf = cache[name]
+            cur = leaf[:, ii, jj]                            # (L, B, ...)
+            mask = drop.reshape((1, -1) + (1,) * (cur.dim() - 2))
+            leaf[:, ii, jj] = torch.where(mask, snaps[name][i], cur)
+    cache["pos"][:] = (pos0 + keep).to(torch.int32)[None, :]
+    return cache
+
+
+def select_state(snaps: torch.Tensor, final: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """A per-slot recurrent state rewound to ``keep`` (B,) accepted steps:
+    ``snaps`` (n, L, B, ...) holds the state before each of n verify steps,
+    ``final`` (L, B, ...) the state after all n.  Returns the state after
+    exactly ``keep[b]`` steps, (L, B, ...)."""
+    states = torch.cat([snaps, final[None]], dim=0).movedim(2, 0)   # (B, n + 1, L, ...)
+    lanes = torch.arange(states.shape[0], device=states.device)
+    return states[lanes, keep.long()].movedim(0, 1)
+
+
 # ---------------------------------------------------------------------------
 # per-slot leaves outside the page pool (an encoder-decoder's cached
 # encoder output and its length)

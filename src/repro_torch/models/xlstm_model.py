@@ -94,19 +94,8 @@ def params_of(model: XLSTM) -> dict:
     return tree
 
 
-def _lin(node, i=None) -> M.Linear:
-    pick = (lambda a: a) if i is None else (lambda a: a[i])
-    b = node.get("b")
-    return M.Linear(pick(node["w"]), None if b is None else pick(b))
-
-
-def _norm(node, i=None) -> M.Norm:
-    pick = (lambda a: a) if i is None else (lambda a: a[i])
-    bias = node.get("bias")
-    return M.Norm(pick(node["scale"]), None if bias is None else pick(bias))
-
-
-def block_from(kind: str, node: dict, i: int, lin=_lin, norm=_norm, leaf=None) -> nn.Module:
+def block_from(kind: str, node: dict, i: int, lin=M.linear_of, norm=M.norm_of,
+               leaf=None) -> nn.Module:
     """Period `i`'s block of kind `kind` from a stacked tree `node` (the
     reference's ``stacks[j]``); `lin`, `norm` and `leaf` build its parts."""
     leaf = leaf or (lambda a, i: a[i])
@@ -124,8 +113,8 @@ def from_params(cfg, params: dict) -> XLSTM:
     for kind, node in zip(pattern(cfg), params["stacks"]):
         views = T.map(lambda t: t.unbind(0), node)
         stacks.append([block_from(kind, views, i) for i in range(n_periods(cfg))])
-    return XLSTM(M.Embed(params["embed"]["table"]), stacks, _norm(params["ln_f"]),
-                 _lin(params["lm_head"]))
+    return XLSTM(M.Embed(params["embed"]["table"]), stacks, M.norm_of(params["ln_f"]),
+                 M.linear_of(params["lm_head"]))
 
 
 def _layer_cache(cache: dict, i: int) -> dict:

@@ -1,6 +1,7 @@
 """Family dispatch (port of `repro.models.zoo`): the dense, MoE and vlm
 families, run by the transformer module, the encoder-decoder family
-(`encdec`) and the recurrent ssm family (`xlstm_model`).
+(`encdec`), the recurrent ssm family (`xlstm_model`) and the hybrid
+family (`hybrid`: RG-LRU and sliding-window attention).
 
   init(cfg, generator, device)            -> model
   forward(model, cfg, tokens, embeds=, remat=) -> pre-logits (B, S, D)
@@ -20,18 +21,17 @@ from __future__ import annotations
 from repro_torch.core import packing
 from repro_torch.core.types import PackedHiNM
 from repro_torch.models import module as M
-from repro_torch.models import encdec, transformer, xlstm_model
+from repro_torch.models import encdec, hybrid, transformer, xlstm_model
 
 _FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer, "encdec": encdec,
-           "ssm": xlstm_model}
+           "ssm": xlstm_model, "hybrid": hybrid}
 
 
 def model_for(cfg):
     try:
         return _FAMILY[cfg.family]
     except KeyError:
-        raise KeyError(f"family {cfg.family!r} is not ported yet; see ROADMAP.md "
-                       "(Queue 1 item 8)") from None
+        raise KeyError(f"unknown family {cfg.family!r}") from None
 
 
 def init(cfg, generator=None, device="cuda"):
@@ -91,15 +91,19 @@ def decode_step(model, cfg, tokens, cache, backend: str = "auto"):
 
 def supports_spec_decode(cfg) -> bool:
     """Whether the family has the speculative verify/rollback pair: a
-    parallel verifier (pure attention) on a config without a window (a
-    wrapped multi-token write would clobber live ring rows)."""
-    return getattr(model_for(cfg), "SPEC_VERIFY", None) == "parallel" and not cfg.window
+    sequential verifier (the hybrid's decode steps with undo snapshots),
+    or a parallel one (pure attention) on a config without a window (a
+    wrapped multi-token write would clobber live ring rows).  A purely
+    recurrent family has none."""
+    mode = getattr(model_for(cfg), "SPEC_VERIFY", None)
+    return mode == "sequential" or (mode == "parallel" and not cfg.window)
 
 
 def verify_step(model, cfg, tokens, cache, backend: str = "auto"):
     """Speculative verify: forward `tokens (B, S)` (pending token + S-1
     drafts per slot), writing all S cache rows in place.  Returns
-    (logits (B, S, vocab_padded), undo)."""
+    (logits (B, S, vocab_padded), undo): None for a parallel verifier, a
+    sequential one's per-step snapshots for `cache_rollback`."""
     return model_for(cfg).verify_step(model, cfg, tokens, cache, backend)
 
 

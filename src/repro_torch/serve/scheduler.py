@@ -95,8 +95,17 @@ stochastic); its prefill template's state is reset to pristine before
 each use (`zoo.rewind_cache`).  It has no pages (a requested page falls
 back to stripes), no speculative verify and no prefix sharing.
 
-What waits for later slices: multi-device meshes and the sliding-window
-ring of the hybrid family.
+The hybrid family (recurrentgemma) groups by exact length too (its
+RG-LRU state), and so does any windowed config.  Its attention stacks
+keep a ring of `window` rows a slot, paged like any other pool: a slot
+reserves pages for at most the ring (`SlotKVCache.pages_needed`), and a
+prompt longer than the ring is rolled into it at prefill.  Its verify is
+sequential (S decode steps with undo snapshots, `zoo.verify_step`): the
+fused loop rolls back from the snapshots in its own body, the unfused
+chain from the verify program's static `_verify_undo` buffers.  It has
+no prefix sharing.
+
+What waits for later slices: multi-device meshes.
 """
 from __future__ import annotations
 
@@ -153,15 +162,13 @@ class Scheduler:
                              "(static gang admission is the synchronous baseline)")
         if packed not in ("auto", "pack"):
             raise ValueError(f"unknown packed-weights mode {packed!r}")
-        if cfg.window:
-            raise NotImplementedError(
-                f"{cfg.name}: the sliding-window ring is not ported yet; see ROADMAP.md "
-                "Queue 1 item 8")
         # prompt-length bucketing: pad admission prefill to power-of-two
         # buckets (one program per bucket, not per distinct prompt length).
-        # Off for a recurrent family (padded rows would enter the state),
-        # whose groups share an exact length instead
-        can_bucket = zoo.supports_bucketed_prefill(cfg)
+        # Off for a recurrent family (padded rows would enter the state)
+        # and on a windowed config (the stripe's ring roll takes real
+        # positions in every prefill row), whose groups share an exact
+        # length instead
+        can_bucket = zoo.supports_bucketed_prefill(cfg) and not cfg.window
         if bucket and not can_bucket:
             raise ValueError(f"{cfg.family!r} prefill cannot be length-bucketed")
         self.bucket = can_bucket if bucket is None else bool(bucket)
@@ -386,6 +393,10 @@ class Scheduler:
                               "judged": vec(i32, cyc, s)}
             self._verify_out = {"pos0": vec(i32), "emits": vec(i32, s, k1),
                                 "cnt": vec(i32), "judged": vec(i32)}
+            # a sequential verifier's undo snapshots (`zoo.verify_step`):
+            # allocated by the verify's first, eager run, then written in
+            # place by every run and replay, where the rollback reads them
+            self._verify_undo = None
             self._drafts = vec(i32, s, self.spec.k)
             # the draft pool's positions before an unfused proposal
             self._draft_pos0 = vec(i32)
@@ -1288,13 +1299,18 @@ class Scheduler:
 
     def _verify_body(self, stochastic: bool, any_reject: bool):
         """One verify of `_drafts` with acceptance and history, into
-        `_verify_out`; the lanes move on in place."""
+        `_verify_out` (a sequential verifier's undo into `_verify_undo`);
+        the lanes move on in place."""
         def body():
-            pos0, _, emits, cnt, judged, lanes = self._verify(self._lanes(), self._drafts,
-                                                              stochastic, any_reject)
+            pos0, undo, emits, cnt, judged, lanes = self._verify(
+                self._lanes(), self._drafts, stochastic, any_reject)
             for name, val in (("pos0", pos0), ("emits", emits), ("cnt", cnt),
                               ("judged", judged)):
                 self._verify_out[name].copy_(val)
+            if undo is not None:
+                if self._verify_undo is None:
+                    self._verify_undo = T.map(torch.empty_like, undo)
+                T.map(lambda dst, src: dst.copy_(src), self._verify_undo, undo)
             self._store(lanes)
         return body
 
@@ -1325,7 +1341,8 @@ class Scheduler:
             with self.telemetry.annotation("serve_spec_verify"):
                 self._program(("verify", stochastic, any_reject),
                               self._verify_body(stochastic, any_reject))
-                self.kv.rollback(vout["pos0"], vout["cnt"], self.spec.k + 1)
+                self.kv.rollback(vout["pos0"], vout["cnt"], self.spec.k + 1,
+                                 undo=self._verify_undo)
                 if self.draft_kv is not None:
                     self.draft_kv.rollback(self._draft_pos0, vout["cnt"], self.spec.k + 1)
             # the unfused chain per cycle: proposal + verify + target

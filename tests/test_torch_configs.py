@@ -3,7 +3,8 @@
 bert-base) against `repro.configs`, and their models at `reduced()`.
 
 Each config equals the reference's field for field (dtype mapped to the
-torch dtype of the same name), as do the MoE family's two.  At `reduced()` (2 layers, d_model 128,
+torch dtype of the same name), as do the MoE family's two and the hybrid
+family's one.  At `reduced()` (2 layers, d_model 128,
 V 8, f32), each config's seeded weights (the port's init, laid out as the
 reference's params tree), HiNM-packed by the reference and carried by
 `params_from_numpy` — GQA 4/2 and MHA 4/4, the untied
@@ -11,8 +12,10 @@ reference's params tree), HiNM-packed by the reference and carried by
 GELU MLP's biased `wu`/`wd` — give the reference's eval forward, bucketed
 prefill and paged decode logits within 1e-4 (sum-order differences only,
 as `tests/test_torch_model.py` holds qwen2-0.5b).  The four configs'
-reference runs compile side by side on threads.  Every other arch id
-still raises with its ROADMAP pointer.
+reference runs compile side by side on threads.  recurrentgemma-9b's
+config equals the reference's too, full and reduced (its models:
+`tests/test_torch_hybrid.py`).  Every reference arch id loads, and an
+unknown name raises.
 """
 import concurrent.futures
 import dataclasses
@@ -58,7 +61,7 @@ def _fields(cfg) -> dict:
     return out
 
 
-@pytest.mark.parametrize("name", NEW + MOE)
+@pytest.mark.parametrize("name", NEW + MOE + ("recurrentgemma_9b",))
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_equals_reference(name, reduced):
     jcfg, cfg = jbase.load_arch(name), base.load_arch(name)
@@ -70,15 +73,17 @@ def test_config_equals_reference(name, reduced):
 
 
 def test_load_arch_loads_ported_and_refuses_the_rest():
-    # the vlm and encdec configs: tests/test_torch_vlm.py; xlstm:
-    # tests/test_torch_xlstm.py
-    assert set(base.PORTED_IDS) == {"qwen2_0_5b", *NEW, *MOE, "phi_3_vision_4_2b",
-                                    "deit_base", "seamless_m4t_medium", "xlstm_125m"}
+    # every reference id loads, under its own name and family; the vlm and
+    # encdec configs' models: tests/test_torch_vlm.py, test_torch_encdec.py;
+    # xlstm: tests/test_torch_xlstm.py; recurrentgemma: test_torch_hybrid.py
+    ids = jbase.ARCH_IDS + jbase.PAPER_IDS
+    assert set(base.PORTED_IDS) == set(ids) == {
+        "qwen2_0_5b", *NEW, *MOE, "phi_3_vision_4_2b", "deit_base", "seamless_m4t_medium",
+        "xlstm_125m", "recurrentgemma_9b"}
+    for name in ids:
+        cfg = base.load_arch(name)
+        assert (cfg.name, cfg.family) == (name, jbase.load_arch(name).family)
     assert base.load_arch("qwen2_5_14b").draft_arch == "qwen2_0_5b"
-    assert set(base.ARCH_IDS + base.PAPER_IDS) - set(base.PORTED_IDS) == {"recurrentgemma_9b"}
-    for name in set(base.ARCH_IDS + base.PAPER_IDS) - set(base.PORTED_IDS):
-        with pytest.raises(KeyError, match="ROADMAP.md"):
-            base.load_arch(name)
     with pytest.raises(KeyError, match="unknown"):
         base.load_arch("no_such_arch")
 

@@ -369,9 +369,9 @@ def test_compile_model_graph_containers_match_reference():
         assert ({(e.src, e.dst, e.kind) for e in c.graph.edges}
                 == {(e.src, e.dst, e.kind) for e in jc.graph.edges})
     assert {n.path for _, n in got.instances()} >= {"xattn/wq", "xattn/wo", "mlp/wd"}
-    hybrid = dataclasses.replace(cfg, family="hybrid")
-    with pytest.raises(KeyError, match="ROADMAP"):
-        compile_model_graph(hybrid)
+    unknown = dataclasses.replace(cfg, family="no_such_family")
+    with pytest.raises(KeyError, match="unknown family"):
+        compile_model_graph(unknown)
 
 
 def test_prune_model_masks_match_reference(setup):
