@@ -103,8 +103,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                and bert-base: packed, K1 at B 4, 16 ("rows") and 512 and
                K2 at s 1/4/64/256 at their shapes, prefill + 4 decode
                steps against the plain versions.
-  9. moe     — granite-3.0 MoE (32 layers, d_model 1536, 40 experts of
-               d_ff 512, top-8) at full width, inited on the card (seeded):
+  9. moe     — granite-3.0 MoE (d_model 1536, 40 experts of d_ff 512,
+               top-8) at full width, MOE_LAYERS (16) of its 32 layers,
+               inited on the card (seeded):
                layer 0 (attention and all 40 experts of each stack)
                gyro-pruned by `prune_model` (PRUNE_ITERS), then noperm
                (retained gyro >= noperm - 5e-3, every permutation checked),
@@ -115,7 +116,7 @@ Phases (each prints its own lines; any failure exits non-zero):
                top-k weights and k-sum bitwise across row counts; a verify
                against decode; prefill + 4 decode steps against the plain
                versions and a float32 forward; 8 greedy requests served from
-               graphs (and the eager twin; 224 K1 and 32 K2 launches a decode
+               graphs (and the eager twin; 112 K1 and 16 K2 launches a decode
                step asserted) and with SpecConfig(k=3) fused: capacity drops
                counted, streams equal to plain or parted at a near tie
                within the gap the verify's drops open from decode.
@@ -131,9 +132,23 @@ Phases (each prints its own lines; any failure exits non-zero):
                resume against an uninterrupted run; gradual HiNM pruning at
                full width cut to 1 layer, gyro (the virtual refresh) and
                noperm: densities on schedule, the refresh's time, PermCache
-               hits, the masks' HiNM structure, recovery gaps; and
+               hits, the masks' HiNM structure, recovery gaps;
                examples/train_hinm_lm_torch.py --steps 40 as a subprocess
-               (run beside phase 4).
+               (run beside phase 4).  Then the five other families, one
+               after another: each at reduced() in f32 on the card against
+               the CPU (step-0 grads within GRAD_TOL of each leaf's max,
+               three AdamW steps' losses within LOSS_TOL); each at full
+               width with its depth cut (granite 4 layers, phi-3 2 with
+               576 patch rows, seamless 2 + 2 with 256 frames, xlstm 4,
+               recurrentgemma 3; bf16, 10 steps; finite, the loss down by
+               0.1): p50 step, tokens/s, peak memory, forward + backward
+               against clip + AdamW, a profiled step's device time by op
+               class, its share of the bf16 peak in its own model FLOPs;
+               granite's gradual masks over its expert stacks at full
+               width (each expert's mask its own, density on schedule);
+               and causal block skipping on the 0.5B at 2 x 2,048, the
+               knob off and on (loss and grads within MICRO_TOL, step ms
+               and peak memory of each).
  11. frontend — the frontend-stub families at full width, inited on the
                card (seeded), frontend rows seeded N(0, 1): phi-3-vision-4.2b
                (32 layers, d 3072, 32/32 heads, hd 96, d_ff 8192; 576
@@ -3006,6 +3021,10 @@ MOE = "granite_moe_3b_a800m"
 # 120 expert searches on the critical path of one item chain), past this
 # phase's share of the time limit
 MOE_PRUNE_ITERS = (2, 2)
+# the served depth: 16 of its 32 layers, to pay for phase 10's training
+# of the other families (the whole script read 1,195.7 s at 32 on a slow
+# H100 host)
+MOE_LAYERS = 16
 # row counts the routing's sums are held bitwise across
 ROUTE_ROWS = (1, 4, 16, 64)
 
@@ -3056,10 +3075,11 @@ class DropCounter:
 
 
 def moe_build(gen):
-    """granite at full width, inited on the card (seed 6); layer 0 (its
-    attention and all 40 experts of each stack) gyro-pruned at
-    MOE_PRUNE_ITERS by `prune_model`, then noperm; the served model takes layer 0's gyro
-    weights and `zoo.pack_params` packs layers 1-31 (noperm)."""
+    """granite at full width and MOE_LAYERS of its layers, inited on the
+    card (seed 6); layer 0 (its attention and all 40 experts of each
+    stack) gyro-pruned at MOE_PRUNE_ITERS by `prune_model`, then noperm;
+    the served model takes layer 0's gyro weights and `zoo.pack_params`
+    packs the others (noperm)."""
     import dataclasses
 
     from repro_torch.configs.base import load_arch
@@ -3067,7 +3087,7 @@ def moe_build(gen):
     from repro_torch.serve import param_bytes
     from repro_torch.train import pruning
 
-    cfg = load_arch(MOE)
+    cfg = dataclasses.replace(load_arch(MOE), n_layers=MOE_LAYERS)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3474,15 +3494,70 @@ LOSS_TOL = 1e-6
 MICRO_TOL = 2e-2
 
 
-def model_flops_per_step(cfg, b, s) -> float:
-    """Model FLOPs of one train step (PaLM's count, PERF.md §5): 6 x the
-    matmul parameters (every projection and the lm_head; the embedding
-    lookup is none) per token, plus 12 x L x H x hd x S per token for the
-    attention scores and values; remat's recomputed forward is not
-    counted."""
-    per_layer = cfg.d_model * (2 * cfg.attn_out_dim + 2 * cfg.kv_out_dim) + 3 * cfg.d_model * cfg.d_ff
-    n = cfg.n_layers * per_layer + cfg.d_model * cfg.vocab_padded
-    return float(b * s) * (6.0 * n + 12.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * s)
+def _mlp_params(cfg, d_ff) -> int:
+    return (3 if cfg.act == "swiglu" else 2) * cfg.d_model * d_ff
+
+
+def _attn_params(cfg) -> int:
+    return cfg.d_model * (2 * cfg.attn_out_dim + 2 * cfg.kv_out_dim)
+
+
+def model_flops_per_step(cfg, b, s, frames=0) -> float:
+    """Model FLOPs of one train step over b rows (PaLM's count, PERF.md §5):
+    6 x the matmul multiply-adds per token (every projection and the
+    lm_head; the embedding lookup is none), plus 12 x H x hd x the keys a
+    query sees (the full S, as PaLM counts, or the window) per attention
+    layer and token.  `s` is a row's decoder rows (a vlm's patch rows
+    included), `frames` an encdec's encoder rows.  Each family counts its
+    own matmuls:
+      - MoE: attention, the router and the top-k experts a token runs;
+      - encdec: the frame projection and the encoder (bidirectional, over
+        `frames`), then the decoder with its cross-attention (k/v
+        projected from the encoder's rows, every query over `frames`);
+      - ssm: the projections, and the recurrences' per-token state
+        products (mLSTM's C update and readout, sLSTM's recurrent r);
+      - hybrid: the RG-LRU projections and its 4-tap conv, the attention
+        layers' projections over their window; the RG-LRU scan is
+        elementwise and left out.
+    remat's recomputed forward is not counted."""
+    d, head = cfg.d_model, cfg.d_model * cfg.vocab_padded
+    attn = 12.0 * cfg.n_heads * cfg.head_dim
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+
+        n_enc = encdec.n_enc_layers(cfg)
+        enc = frames * (6.0 * (d * d + n_enc * (_attn_params(cfg) + _mlp_params(cfg, cfg.d_ff)))
+                        + n_enc * attn * frames)
+        dec_tok = (cfg.n_layers * (_attn_params(cfg) + 2 * d * cfg.attn_out_dim
+                                   + _mlp_params(cfg, cfg.d_ff)) + head)
+        xkv = frames * cfg.n_layers * 2 * d * cfg.kv_out_dim
+        dec = s * (6.0 * dec_tok + cfg.n_layers * attn * (s + frames)) + 6.0 * xkv
+        return float(b) * (enc + dec)
+    if cfg.family == "ssm":
+        from repro_torch.models import xlstm, xlstm_model
+
+        h, dk = cfg.n_heads, xlstm.head_dim(cfg)
+        per = {"mlstm": 5 * d * d + 2 * d * h + 2 * h * dk * dk,
+               "slstm": 5 * d * d + 4 * h * dk * dk}
+        n = xlstm_model.n_periods(cfg) * sum(per[k] for k in xlstm_model.pattern(cfg)) + head
+        return float(b * s) * 6.0 * n
+    if cfg.family == "hybrid":
+        from repro_torch.models import hybrid, rglru
+
+        r = rglru.width(cfg)
+        rec = 2 * d * r + 2 * r * r + r * d + rglru.CONV_K * r
+        n_kind = dict(zip(hybrid.pattern(cfg), [0] * 3))
+        for kind, c in zip(hybrid.pattern(cfg), hybrid.counts(cfg)):
+            n_kind[kind] += c
+        n = (n_kind.get("rec", 0) * rec + n_kind.get("attn", 0) * _attn_params(cfg)
+             + cfg.n_layers * _mlp_params(cfg, cfg.d_ff) + head)
+        keys = min(s, cfg.window) if cfg.window else s
+        return float(b * s) * (6.0 * n + n_kind.get("attn", 0) * attn * keys)
+    ffn = _mlp_params(cfg, cfg.d_ff)
+    if cfg.family == "moe":
+        ffn = d * cfg.n_experts + cfg.top_k * _mlp_params(cfg, cfg.d_ff)
+    n = cfg.n_layers * (_attn_params(cfg) + ffn) + head
+    return float(b * s) * (6.0 * n + cfg.n_layers * attn * s)
 
 
 def noise_floor(grads, floor=1e-3) -> dict:
@@ -3517,6 +3592,52 @@ def tree_rel_err(got, want, free=None, norm="max") -> float:
     return worst
 
 
+def timed_steps(cfg, step_fn, p, st, batches):
+    """`step_fn` from (p, st) over `batches`, each step timed on the host
+    clock to its loss's read (a sync); then, at the last params, one
+    forward + backward against clip + AdamW, and one more step under
+    torch.profiler (device activity): device ms and launches by op class.
+    Returns the last (p, st) and the readings."""
+    from repro_torch.optim import clip_by_global_norm, make_optimizer
+    from repro_torch.train import steps
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms = [], [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        p, st, met, _ = step_fn(p, st, None, b, i)
+        losses.append(float(met["loss"]))          # a sync: the step's work is done
+        norms.append(float(met["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = dict(losses=losses, grad_norms=norms, step_ms=ms,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = steps.value_and_grad(p, cfg, None, batches[0])[1]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    g, _ = clip_by_global_norm(g, 1.0)
+    upd = make_optimizer("adamw").update(g, st, p, 1e-3)
+    torch.cuda.synchronize()
+    out.update(fwd_bwd_ms=(t1 - t0) * 1e3, clip_adamw_ms=(time.perf_counter() - t1) * 1e3)
+    del g, upd
+    from torch.profiler import ProfilerActivity, profile
+
+    # device activity only: recording every host op too made xlstm's
+    # profile (58.7k launches a step) take ~55 s to aggregate on an H100 host
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        q = step_fn(p, st, None, batches[0], len(batches))
+        float(q[2]["loss"])
+        out["profiled_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    del q
+    rows = device_ops(prof)
+    out.update(device_ms=sum(r[0] for r in rows), launches=sum(r[1] for r in rows),
+               classes=op_classes(rows, 1))
+    return p, st, out
+
+
 def full_train_step(dev="cuda"):
     """The dense train step at qwen2-0.5b's full width (24 layers, bf16,
     AdamW, cosine_schedule(3e-3, 10, 30), remat) on SyntheticLMData(seed
@@ -3537,42 +3658,9 @@ def full_train_step(dev="cuda"):
     batches = [data.batch(i) for i in range(TRAIN_STEPS)]
     step_fn, _ = steps.make_train_step(cfg, lr_fn=cosine_schedule(3e-3, 10, TRAIN_STEPS))
     opt_state = make_optimizer("adamw").init(params)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, ms = [], []
-    p = params
-    for i, b in enumerate(batches):
-        t0 = time.perf_counter()
-        p, opt_state, met, _ = step_fn(p, opt_state, None, b, i)
-        losses.append(float(met["loss"]))          # a sync: the step's work is done
-        ms.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated()
+    p, opt_state, split = timed_steps(cfg, step_fn, params, opt_state, batches)
+    losses, ms, peak = split.pop("losses"), split.pop("step_ms"), split.pop("peak_bytes")
     p50 = float(np.median(ms[5:]))
-    # where a step goes: forward + backward (remat), then clip + AdamW
-    from repro_torch.optim import clip_by_global_norm
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, g = steps.value_and_grad(p, cfg, None, batches[0])
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    g, _ = clip_by_global_norm(g, 1.0)
-    upd = make_optimizer("adamw").update(g, opt_state, p, 1e-3)
-    torch.cuda.synchronize()
-    split = dict(fwd_bwd_ms=(t1 - t0) * 1e3, clip_adamw_ms=(time.perf_counter() - t1) * 1e3)
-    del g, upd
-    # one step under torch.profiler: device ms and launches by op class
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        q = step_fn(p, opt_state, None, batches[0], TRAIN_STEPS)
-        float(q[2]["loss"])
-        split["profiled_wall_ms"] = (time.perf_counter() - t0) * 1e3
-    del q
-    rows = device_ops(prof)
-    split.update(device_ms=sum(r[0] for r in rows), launches=sum(r[1] for r in rows),
-                 classes=op_classes(rows, 1))
     flops = model_flops_per_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
     share = flops / (p50 * 1e-3) / PEAK_OPS[torch.bfloat16]
     out = dict(params=n_params, losses=losses, p50_step_ms=p50,
@@ -3834,6 +3922,314 @@ def gradual_phase(dev="cuda", **kw):
     return runs
 
 
+# the other families' training: each at full width, its depth cut, for
+# FAMILY_STEPS steps (bf16, AdamW, remat, cosine_schedule(lr, 3, 10)):
+# layers, batch rows and a row's tokens (a vlm's rows also hold its 576
+# patch rows, an encdec's encoder its frames), and the peak lr
+FAMILY_TRAIN = {
+    "granite_moe_3b_a800m": dict(n_layers=4, batch=4, seq=256),
+    "phi_3_vision_4_2b": dict(n_layers=2, batch=4, seq=64),
+    "seamless_m4t_medium": dict(n_layers=2, n_enc_layers=2, batch=4, seq=64, frames=256),
+    "xlstm_125m": dict(n_layers=4, batch=4, seq=128),
+    # peak lr 1e-3: at 3e-3 its loss climbed from 12.48 to 15.31 over the
+    # 10 steps (18.31 at step 6), the same losses in two calls on an H100;
+    # AdamW's first steps move every weight by ~lr, a third of wd's init
+    # scale (1/sqrt(12,288)) a step (PERF.md, Findings)
+    "recurrentgemma_9b": dict(n_layers=3, batch=4, seq=256, lr=1e-3),
+}
+FAMILY_STEPS = 10
+# the schedule's peak lr where FAMILY_TRAIN gives none
+FAMILY_LR = 3e-3
+# the card against the CPU at reduced() (tests/test_torch_train_families.py's
+# configs: phi-3's patch rows cut to 8, recurrentgemma's window to 16),
+# 4 rows of 32 tokens (an encdec: 32 frames, 8 tokens)
+FAMILY_REDUCED = {"granite_moe_3b_a800m": {}, "phi_3_vision_4_2b": dict(frontend_tokens=8),
+                  "seamless_m4t_medium": {}, "xlstm_125m": {},
+                  "recurrentgemma_9b": dict(window=16)}
+# a gradient leaf under this share of the tree's largest is zero in exact
+# arithmetic (xlstm's mLSTM input-gate bias: the normaliser divides out a
+# shift common to every token's gate); its values are rounding noise, so
+# it is held to be under it on both devices, not to its own max
+ZERO_GRAD = 1e-6
+# causal block skipping: the 0.5B at full width, 2 rows of 2,048 tokens
+# (4 query chunks of 512 over 2 KV blocks of 1,024)
+SKIP_BATCH, SKIP_SEQ = 2, 2048
+
+
+def family_batch(cfg, data, step, frames=0, seed=0, dev="cuda"):
+    """`data`'s batch `step` (SyntheticLMData on the CPU) on `dev` in the
+    reference's shapes (`data.pipeline.make_batch_specs`), with a seeded
+    normal draw for the frontend stub: a vlm's tokens after its
+    frontend_tokens patch rows, labels over both; an encdec's `frames`
+    frame rows."""
+    b = data.batch(step)
+    rows = b["tokens"].shape[0]
+    gen = torch.Generator().manual_seed(seed * 1000 + step)
+    if cfg.frontend == "patch":
+        p = cfg.frontend_tokens
+        b = dict(tokens=b["tokens"][:, p:], labels=b["labels"],
+                 embeds=torch.randn((rows, p, cfg.d_model), generator=gen))
+    elif cfg.frontend == "frames":
+        b = dict(b, embeds=torch.randn((rows, frames, cfg.d_model), generator=gen))
+    return {k: (v.to(cfg.dtype) if k == "embeds" else v).to(dev) for k, v in b.items()}
+
+
+def family_data(cfg, rows, seq, seed):
+    from repro_torch.data.pipeline import SyntheticLMData
+
+    extra = cfg.frontend_tokens if cfg.frontend == "patch" else 0
+    return SyntheticLMData(cfg.vocab, seq + extra, rows, seed=seed, device="cpu")
+
+
+def zero_leaves(grads) -> set:
+    """Names of the gradient leaves whose max is under ZERO_GRAD of the
+    tree's largest."""
+    from repro_torch import tree as T
+
+    leaves = [(n, float(g.abs().max())) for n, g in T.leaves_with_names(grads)]
+    top = max(m for _, m in leaves)
+    return {n for n, m in leaves if m < ZERO_GRAD * top}
+
+
+def family_reduced_run(name, dev):
+    """`name` at FAMILY_REDUCED's reduced config on `dev`, f32 (TF32 off),
+    weights from the CPU's generator (seed 0): the first batch's
+    gradients, then three AdamW steps' losses."""
+    from repro_torch import tree as T
+    from repro_torch.configs.base import load_arch
+    from repro_torch.models import zoo
+    from repro_torch.optim import cosine_schedule, make_optimizer
+    from repro_torch.train import steps
+
+    cfg = load_arch(name).reduced(**FAMILY_REDUCED[name])
+    p = T.map(lambda t: t.to(dev), zoo.params_of(cfg, zoo.init(
+        cfg, torch.Generator().manual_seed(0), "cpu")))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    data = family_data(cfg, 4, 8 if cfg.frontend == "frames" else 32, 1)
+    batches = [family_batch(cfg, data, i, frames=32, seed=1, dev=dev) for i in range(3)]
+    g0 = steps.value_and_grad(p, cfg, None, batches[0])[1]
+    step_fn, _ = steps.make_train_step(cfg, lr_fn=cosine_schedule(1e-2, 5, 100))
+    st, losses = make_optimizer("adamw").init(p), []
+    for i, b in enumerate(batches):
+        p, st, met, _ = step_fn(p, st, None, b, i)
+        losses.append(float(met["loss"]))
+    return losses, g0
+
+
+def family_card_vs_cpu(name) -> dict:
+    """`family_reduced_run` on the card and on the CPU: the first batch's
+    gradients within GRAD_TOL of each leaf's max (a zero leaf under
+    ZERO_GRAD of the tree's largest on both), three AdamW steps' losses
+    within LOSS_TOL."""
+    cpu_losses, cpu_g = family_reduced_run(name, "cpu")
+    losses, g = family_reduced_run(name, "cuda")
+    from repro_torch import tree as T
+
+    zero = zero_leaves(cpu_g)
+    top = max(float(x.abs().max()) for x in T.leaves(cpu_g))
+    named = list(zip(T.leaves_with_names(g), T.leaves(cpu_g)))
+    zero_max = max([float(a.abs().max()) / top for (n, a), _ in named if n in zero] + [0.0])
+    rel = max(float((a.double().cpu() - c.double()).abs().max()) / float(c.abs().max())
+              for (n, a), c in named if n not in zero)
+    out = dict(grad_rel=rel, zero_leaves=sorted(zero), zero_leaf_max=zero_max,
+               loss_rel=max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)))
+    print(f"  card vs CPU, {name} reduced f32: step-0 grads max rel diff {out['grad_rel']:.3e} "
+          f"(tol {GRAD_TOL:.0e}; zero leaves {out['zero_leaves']} under {zero_max:.1e} of the "
+          f"largest gradient, limit {ZERO_GRAD:.0e}); 3 AdamW steps' losses {out['loss_rel']:.3e}"
+          f" (tol {LOSS_TOL:.0e})", flush=True)
+    if not (out["grad_rel"] <= GRAD_TOL and zero_max < ZERO_GRAD and out["loss_rel"] <= LOSS_TOL):
+        raise AssertionError(f"{name}: card and CPU disagree: {out}")
+    return out
+
+
+def family_full_train(name, dev="cuda") -> dict:
+    """`name` at full width, depth cut as FAMILY_TRAIN says, bf16: FAMILY_STEPS
+    AdamW steps (remat, cosine_schedule(lr, 3, FAMILY_STEPS)) on
+    SyntheticLMData(seed 0), `timed_steps`' readings; every loss and
+    gradient norm finite, the loss down by 0.1 from step 0 to the last
+    (tests/test_train.py's rule)."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import load_arch
+    from repro_torch.models import zoo
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.train import steps
+
+    spec = FAMILY_TRAIN[name]
+    cfg = dataclasses.replace(load_arch(name), **{k: spec[k] for k in ("n_layers", "n_enc_layers")
+                                                  if k in spec})
+    rows, seq, frames = spec["batch"], spec["seq"], spec.get("frames", 0)
+    torch.cuda.reset_peak_memory_stats()
+    p = zoo.params_of(cfg, zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in T.leaves(p))
+    data = family_data(cfg, rows, seq, 0)
+    batches = [family_batch(cfg, data, i, frames, dev=dev) for i in range(FAMILY_STEPS)]
+    step_fn, opt = steps.make_train_step(cfg, lr_fn=cosine_schedule(spec.get("lr", FAMILY_LR), 3,
+                                                                     FAMILY_STEPS))
+    p, st, split = timed_steps(cfg, step_fn, p, opt.init(p), batches)
+    del p, st
+    losses, norms, ms = split.pop("losses"), split.pop("grad_norms"), split.pop("step_ms")
+    peak = split.pop("peak_bytes")
+    p50 = float(np.median(ms[2:]))
+    # a row's tokens: a vlm's patch rows and an encdec's frames included
+    tok = seq + (cfg.frontend_tokens if cfg.frontend == "patch" else 0) + frames
+    dec_rows = seq + (cfg.frontend_tokens if cfg.frontend == "patch" else 0)
+    flops = model_flops_per_step(cfg, rows, dec_rows, frames)
+    share = flops / (p50 * 1e-3) / PEAK_OPS[torch.bfloat16]
+    out = dict(layers=cfg.n_layers, params=n_params, losses=losses, grad_norms=norms,
+               step_ms=ms, p50_step_ms=p50, tokens_per_row=tok,
+               tokens_per_s=rows * tok / (p50 * 1e-3), init_peak_bytes=init_peak,
+               peak_bytes=peak, model_flops=flops, mfu=share, **split)
+    depth = (f"{cfg.n_layers} decoder + {spec['n_enc_layers']} encoder layers"
+             if "n_enc_layers" in spec else f"{cfg.n_layers} layers")
+    shape = (f"{rows} x ({cfg.frontend_tokens} patch rows + {seq} tokens)"
+             if cfg.frontend == "patch" else f"{rows} x ({frames} frames, {seq} tokens)"
+             if frames else f"{rows} x {seq}")
+    print(f"train step, {name} full width at {depth} ({n_params / 1e6:.1f}M params, bf16, "
+          f"AdamW, remat), batch {shape}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{FAMILY_STEPS} steps; p50 step {p50:.1f} ms (steps 2-{FAMILY_STEPS - 1}; first "
+          f"{ms[0]:.0f} ms), {out['tokens_per_s']:.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB (init {init_peak / 2**30:.2f} GiB), model FLOPs "
+          f"{flops / 1e12:.3f} T/step = {share:.1%} of the dense bf16 peak; one forward + "
+          f"backward (remat) {split['fwd_bwd_ms']:.1f} ms, clip + AdamW "
+          f"{split['clip_adamw_ms']:.1f} ms", flush=True)
+    print(f"  one step under torch.profiler: wall {split['profiled_wall_ms']:.1f} ms, device "
+          f"{split['device_ms']:.1f} ms in {split['launches']} launches; by class (ms / "
+          "launches): " + "; ".join(f"{c} {t:.1f} / {n:.0f}"
+                                    for c, (t, n) in split["classes"].items()), flush=True)
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"{name}: a non-finite loss or gradient norm: {losses} {norms}")
+    if not losses[-1] <= losses[0] - 0.1:
+        raise AssertionError(f"{name}: full-width loss did not fall by 0.1: {losses}")
+    return out
+
+
+def granite_gradual_masks(dev="cuda") -> dict:
+    """Gradual pruning's mask recompute over granite's expert stacks at full
+    width, one layer: at a ramp step, its end and the N:M switch (no gyro
+    search: the refresh is held to the reference on the CPU),
+    `recompute_masks` gives every expert of each (L, E, n_in, n_out) stack
+    the single-matrix mask of its own weight, bit for bit, at the
+    schedule's density."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs.base import load_arch
+    from repro_torch.models import zoo
+    from repro_torch.train import gradual
+
+    cfg = dataclasses.replace(load_arch("granite_moe_3b_a800m"), n_layers=1)
+    params = zoo.params_of(cfg, zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    sched = gradual.GradualSchedule(target=cfg.hinm, vector_end_step=12, nm_step=20,
+                                    update_every=5)
+    events = []
+    for step in (5, 12, 20):
+        hcfg, nm = sched.config_at(step), sched.nm_active(step)
+        t0 = time.perf_counter()
+        masks = gradual.recompute_masks(params, cfg, hcfg, nm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        equal = 0
+        for proj in ("wg", "wu", "wd"):
+            w, m = params["blocks"]["moe"][proj]["w"], masks["blocks"]["moe"][proj]["w"]
+            if m.shape != w.shape:
+                raise AssertionError(f"{proj} mask {tuple(m.shape)} != {tuple(w.shape)}")
+            equal += sum(bool(torch.equal(m[0, e], gradual._mask_for_weight(w[0, e], hcfg, nm)))
+                         for e in range(cfg.n_experts))
+        leaves = T.leaves(masks)
+        dens = float(np.mean([float(m.float().mean()) for m in leaves]))
+        want = float(np.mean([hcfg.kept_columns(m.shape[-2]) / m.shape[-2]
+                              * (hcfg.n / hcfg.m if nm else 1.0) for m in leaves]))
+        events.append(dict(step=step, nm=nm, density=dens, schedule=want, wall_s=wall,
+                           experts_equal=equal, experts=3 * cfg.n_experts))
+    print(f"gradual masks, granite full width, 1 layer (3 stacks of {cfg.n_experts} experts): "
+          + "; ".join(
+        f"step {e['step']}{' (N:M)' if e['nm'] else ''}: {e['experts_equal']}/{e['experts']} "
+        f"expert masks equal the per-expert function, density {e['density']:.4f} (schedule "
+        f"{e['schedule']:.4f}), {e['wall_s'] * 1e3:.0f} ms" for e in events), flush=True)
+    for e in events:
+        if e["experts_equal"] != e["experts"] or abs(e["density"] - e["schedule"]) > 1e-3:
+            raise AssertionError(f"granite gradual masks: {e}")
+    return dict(events=events)
+
+
+def block_skip_check(dev="cuda") -> dict:
+    """Causal block skipping on the 0.5B at full width, SKIP_BATCH x
+    SKIP_SEQ: with the knob off and on, the loss and gradients (within
+    MICRO_TOL relative L2 per leaf), a train step's mean over 2 steps and
+    its peak memory."""
+    from repro_torch import perf_knobs
+    from repro_torch import tree as T
+    from repro_torch.configs.base import load_arch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import zoo
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.train import steps
+
+    cfg = load_arch("qwen2_0_5b")
+    params = zoo.params_of(cfg, zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    batch = SyntheticLMData(cfg.vocab, SKIP_SEQ, SKIP_BATCH, seed=0, device=dev).batch(0)
+    step_fn, opt = steps.make_train_step(cfg, lr_fn=cosine_schedule(3e-3, 10, 30))
+    st = opt.init(params)
+    runs = {}
+    for on in (False, True):
+        with perf_knobs.knobs(causal_block_skip=on):
+            loss, g = steps.value_and_grad(params, cfg, None, batch)     # and a warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for i in range(2):
+                t0 = time.perf_counter()
+                float(step_fn(params, st, None, batch, 5)[2]["loss"])
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs[on] = dict(loss=float(loss), grads=g, step_ms=float(np.mean(ms)),
+                            peak_bytes=torch.cuda.max_memory_allocated())
+    off, on = runs[False], runs[True]
+    rel = max(float((a.float() - c.float()).norm() / max(float(c.float().norm()), 1e-30))
+              for a, c in zip(T.leaves(on["grads"]), T.leaves(off["grads"])))
+    dl = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    out = dict(loss_rel=dl, grad_rel=rel, **{f"{k}_{m}": v for k, r in (("off", off), ("on", on))
+                                             for m, v in r.items() if m != "grads"})
+    print(f"causal block skip, qwen2_0_5b full width, batch {SKIP_BATCH} x {SKIP_SEQ} (4 query "
+          f"chunks): loss {off['loss']:.5f} off, {on['loss']:.5f} on (rel diff {dl:.2e}); grads "
+          f"max per-leaf ||on - off|| / ||off|| {rel:.2e} (tol {MICRO_TOL:.0e}); train step "
+          f"{off['step_ms']:.1f} ms off, {on['step_ms']:.1f} ms on (mean of 2); peak memory "
+          f"{off['peak_bytes'] / 2**30:.2f} GiB off, {on['peak_bytes'] / 2**30:.2f} GiB on",
+          flush=True)
+    if not (rel <= MICRO_TOL and dl <= MICRO_TOL):
+        raise AssertionError(f"causal block skip changed the step: {out}")
+    return out
+
+
+def family_train_phase() -> dict:
+    """The five other families' training on the card, one after another:
+    card against CPU at reduced(), then full width at cut depth; granite's
+    gradual masks; causal block skipping on the 0.5B."""
+    t0 = time.perf_counter()
+    out, secs = {"card_vs_cpu": {}, "full": {}}, {}
+
+    def part(label, fn, *args):
+        free_card()
+        t = time.perf_counter()
+        r = fn(*args)
+        secs[label] = time.perf_counter() - t
+        return r
+
+    for name in FAMILY_TRAIN:
+        out["card_vs_cpu"][name] = part(f"card vs CPU {name}", family_card_vs_cpu, name)
+    for name in FAMILY_TRAIN:
+        out["full"][name] = part(f"full {name}", family_full_train, name)
+    out["gradual"] = part("granite masks", granite_gradual_masks)
+    out["block_skip"] = part("block skip", block_skip_check)
+    free_card()
+    out["wall_s"], out["seconds"] = time.perf_counter() - t0, secs
+    print(f"family training {out['wall_s']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    return out
+
+
 def train_entry_point(root) -> list:
     """examples/train_hinm_lm_torch.py --scale tiny --steps 40 on the card;
     `entry_point_check` wants exit 0 and its report lines."""
@@ -3864,6 +4260,8 @@ def train_phase(entry) -> dict:
     with tempfile.TemporaryDirectory() as root:
         out["loop"] = loop_faults(root)
         out["gradual"] = gradual_phase()
+    free_card()
+    out["families"] = family_train_phase()
     fut, entry_root = entry
     out["entry_point"] = entry_point_check(fut.result()[1], lines=3)["train entry point"]
     shutil.rmtree(entry_root, ignore_errors=True)
@@ -5424,6 +5822,14 @@ def main() -> int:
           f"; gradual recovery gap gyro {gr['gyro']['gap']:+.4f} noperm "
           f"{gr['noperm']['gap']:+.4f} (refresh {gr['gyro']['refreshes'][0]['wall_s']:.1f} s); "
           f"entry point exit {trained['entry_point']['exit']}; phase {trained['wall_s']:.1f} s")
+    fam = trained["families"]
+    print("train families (full width, cut depth, bf16): " + "; ".join(
+        f"{n} p50 {r['p50_step_ms']:.1f} ms, {r['tokens_per_s']:.0f} tokens/s, peak "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB, {r['mfu']:.2%} of the bf16 peak, loss "
+        f"{r['losses'][0]:.3f} -> {r['losses'][-1]:.3f}" for n, r in fam["full"].items())
+        + "; card vs CPU grads max " + f"{max(r['grad_rel'] for r in fam['card_vs_cpu'].values()):.1e}"
+        + f"; block skip step {fam['block_skip']['off_step_ms']:.1f} -> "
+        f"{fam['block_skip']['on_step_ms']:.1f} ms; phase part {fam['wall_s']:.1f} s")
     b, sd = big["build"], dense["self_draft"]
     print(f"dense family: 14B {gb(b['packed_bytes'])} packed vs {gb(b['dense_bytes'])} dense, "
           f"peak {gb(b['peak'])}; agree plain {big['agree']['plain'][0]:.2e}, f32 "

@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import perf_knobs
 from repro_torch.kernels import ops as kops
 from repro_torch.models import module as M
 from repro_torch.models import paging
@@ -81,10 +83,17 @@ def _attn_chunked(
     window: int,             # 0 = unlimited
     kv_block: int = 512,
     q_block: int = 512,
+    aligned: bool = False,   # q_pos/k_pos are the standard arange (training)
 ) -> torch.Tensor:
     """Flash-style attention in plain torch: a loop over query blocks, an
     online softmax over KV blocks inside — peak memory is one (qblk, kvblk)
-    score tile, never (S, S).  Blocking follows the reference exactly."""
+    score tile, never (S, S).  Blocking follows the reference exactly.
+
+    With more than one query chunk and autograd on, each chunk is
+    checkpointed, so the backward pass recomputes a chunk's probabilities
+    instead of keeping them.  Under ``KNOBS.causal_block_skip`` a causal,
+    `aligned` call gives query chunk i only the static run of KV blocks
+    its mask reaches: from the window's first block to the diagonal's."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -98,11 +107,31 @@ def _attn_chunked(
     nq = max(1, sq // q_block)
     if sq % q_block != 0:
         nq, q_block = 1, sq
-    outs = [_attn_qchunk(qf[:, i * q_block:(i + 1) * q_block], kb, vb,
-                         q_pos[:, i * q_block:(i + 1) * q_block], pb, causal, window)
-            for i in range(nq)]
-    out = outs[0] if nq == 1 else torch.cat(outs, dim=1)
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    if nq == 1:
+        return _attn_qchunk(qf, kb, vb, q_pos, pb, causal, window).reshape(
+            b, sq, h, hd).to(q.dtype)
+    skip = causal and aligned and perf_knobs.KNOBS.causal_block_skip
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    outs = []
+    for i in range(nq):
+        lo, hi = 0, nblk
+        if skip:
+            hi = min(nblk, ((i + 1) * q_block + kv_block - 1) // kv_block)
+            if window:
+                lo = max(0, (i * q_block - window) // kv_block)
+        args = (qf[:, i * q_block:(i + 1) * q_block], kb, vb,
+                q_pos[:, i * q_block:(i + 1) * q_block], pb, lo, hi, causal, window)
+        outs.append(checkpoint(_attn_qchunk_blocks, *args, use_reentrant=False) if remat
+                    else _attn_qchunk_blocks(*args))
+    return torch.cat(outs, dim=1).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _attn_qchunk_blocks(qf, kb, vb, q_pos, pb, lo: int, hi: int, causal: bool,
+                        window: int) -> torch.Tensor:
+    """`_attn_qchunk` over KV blocks lo..hi-1, sliced inside the checkpointed
+    region: what the backward keeps is the one shared K/V, not a copy of
+    each chunk's slice."""
+    return _attn_qchunk(qf, kb[:, lo:hi], vb[:, lo:hi], q_pos, pb[:, lo:hi], causal, window)
 
 
 class Attention(nn.Module):
@@ -146,7 +175,7 @@ def attention(
 
     if cache is None:
         out = _attn_chunked(q, k, v, positions, positions, not bidirectional, cfg.window,
-                            kv_block)
+                            kv_block, aligned=not bidirectional)
     elif paging.is_paged(cache):
         # Paged pool: the slot's rows live in shared physical pages resolved
         # through its block table.  The s new rows (one at decode, k+1 in a

@@ -69,17 +69,40 @@ def adamw_init(params):
             "count": _count_like(params)}
 
 
+# a leaf's update runs over slices of its first axis of at most this many
+# elements, so its f32 temporaries stay small (a 256k x 4096 table takes
+# 4.2 GB a copy); every operation is elementwise, so the numbers are the
+# whole leaf's
+ADAMW_SLICE = 1 << 26
+
+
 def adamw_update(grads, state, params, lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1):
     count = state["count"] + 1
     c = count.float()
     bc1, bc2 = 1 - b1 ** c, 1 - b2 ** c
 
-    def one(g, mu, nu, p):
+    def part(g, mu, nu, p):
+        # the reference's expressions, operation for operation; each result
+        # goes into a temporary of its own (an in-place op rounds as its
+        # out-of-place twin does), never into an input: an f32 leaf's
+        # .float() is the leaf itself
         g32 = g.float()
-        mu = b1 * mu + (1 - b1) * g32
-        nu = b2 * nu + (1 - b2) * g32 * g32
-        step = (mu / bc1) / (torch.sqrt(nu / bc2) + eps) + weight_decay * p.float()
-        return mu, nu, (p.float() - lr * step).to(p.dtype)
+        mu = (b1 * mu).add_((1 - b1) * g32)
+        nu = (b2 * nu).add_((1 - b2) * g32 * g32)
+        del g32
+        step = (mu / bc1).div_(torch.sqrt(nu / bc2).add_(eps))
+        step.add_(weight_decay * p.float())
+        return mu, nu, torch.sub(p.float(), step.mul_(lr), out=step).to(p.dtype)
+
+    def one(g, mu, nu, p):
+        if g.dim() == 0 or g.numel() <= ADAMW_SLICE:
+            return part(g, mu, nu, p)
+        rows = max(1, ADAMW_SLICE // (g.numel() // g.shape[0]))
+        out = (torch.empty_like(mu), torch.empty_like(nu), torch.empty_like(p))
+        for i in range(0, g.shape[0], rows):
+            for o, r in zip(out, part(*(t[i:i + rows] for t in (g, mu, nu, p)))):
+                o[i:i + rows] = r
+        return out
 
     mu, nu, new_p = _unzip(grads, T.map(one, grads, state["mu"], state["nu"], params), 3)
     return new_p, {"mu": mu, "nu": nu, "count": count}

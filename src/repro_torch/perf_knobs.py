@@ -1,6 +1,8 @@
-"""Process-wide knobs the serving path reads (port of the two serving knobs
-of `repro.perf_knobs`; the distributed and training knobs come with their
-slices, ROADMAP Queue 1 items 9 and 10).
+"""Process-wide knobs (port of `repro.perf_knobs`): the two the serving
+path reads and the one the training attention reads.  The reference's
+`xent_chunk`, `kv_block` and `q_block` are read nowhere in it, so they
+have no port; the distributed knobs come with their slice (ROADMAP Queue 1
+item 10).
 
 `knobs(**overrides)` swaps in a modified copy for the duration of a
 ``with`` block, as the reference's does.
@@ -23,6 +25,11 @@ class Knobs:
     # decisions); True = schedulers default to wall-clock histograms and
     # request-lifecycle tracing.  Per scheduler: Scheduler(telemetry=...).
     telemetry: bool = False
+    # Causal block skipping in training attention (`layers._attn_chunked`
+    # with ``aligned``): query chunk i attends only to the static prefix of
+    # KV blocks its causal (and window) mask reaches, instead of every
+    # block with the rest masked.  Off by default, as the reference's.
+    causal_block_skip: bool = False
 
 
 KNOBS = Knobs()

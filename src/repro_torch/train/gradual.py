@@ -58,15 +58,23 @@ def _mask_for_weight(w: torch.Tensor, hcfg: HiNMConfig, nm_on: bool) -> torch.Te
     return mask.T
 
 
+def _stacked_mask(w: torch.Tensor, hcfg: HiNMConfig, nm_on: bool) -> torch.Tensor:
+    """`_mask_for_weight` over every leading axis of `w` (layers, and an
+    expert stack's experts): the reference's nested vmap."""
+    if w.dim() == 2:
+        return _mask_for_weight(w, hcfg, nm_on)
+    return torch.stack([_stacked_mask(wi, hcfg, nm_on) for wi in w])
+
+
 def recompute_masks(params, cfg, hcfg: HiNMConfig, nm_on: bool):
     """Masks for the *current* layout (no permutation search): a bool leaf,
-    layer-stacked like its weight, at every planned projection; ``None``
+    stacked like its weight (``(L, n_in, n_out)``, an expert stack's
+    ``(L, E, n_in, n_out)``), at every planned projection; ``None``
     elsewhere."""
     masks = T.map(lambda _: None, params)
     for key, node in zoo.perm_graph(cfg).instances():
         w = pruning.get_node(params, key, node.path)["w"]
-        mask = torch.stack([_mask_for_weight(wi, hcfg, nm_on) for wi in w])
-        pruning.get_node(masks, key, node.path)["w"] = mask
+        pruning.get_node(masks, key, node.path)["w"] = _stacked_mask(w, hcfg, nm_on)
     return masks
 
 

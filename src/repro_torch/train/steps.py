@@ -52,7 +52,7 @@ def apply_masks(params, masks):
 
 def loss_fn(params, cfg, masks, batch) -> torch.Tensor:
     model = zoo.from_params(cfg, apply_masks(params, masks))
-    x = zoo.forward(model, cfg, batch["tokens"], remat=True)
+    x = zoo.forward(model, cfg, batch["tokens"], embeds=batch.get("embeds"), remat=True)
     return chunked_xent(model, cfg, x, batch["labels"])
 
 
