@@ -217,6 +217,22 @@ Phases (each prints its own lines; any failure exits non-zero):
                exactly; SpecConfig(k=3) fused and unfused equal to plain;
                launches a decode step (54 K1, 2 K2), a verify (4 steps)
                and an admission group (54 K1) asserted.
+  14. mesh  — the distributed layer on the card: an NCCL group of world
+               size 1 and a (1, 1) ("data", "model") mesh.  Phase 5's packed
+               full-width qwen2-0.5b serves phase 5's 8 greedy requests
+               through Scheduler(mesh=) (programs eager, the decode chunk
+               data-parallel over the one dp rank, the next tokens
+               all-gathered): tokens bitwise phase 5's eager twin, K1 and K2
+               launched (counts set to 0 just before, read just after),
+               the flight `config` event sharded.  `shard_serve_step`
+               (T-sharded K1 over the rank's tiles, sequence-parallel decode
+               attention) gives `zoo.decode_step`'s logits bitwise over 4
+               steps, its K1 launches counted alone (7 a layer a step).
+               Layer 0's 7 projections cut into 2 and 4 T slices,
+               as a 2- or 4-rank 'model' axis holds them: K1 over each slice
+               (the whole weight's launch plan), concatenated, bitwise K1
+               over the whole at B 4 and 512; one slice timed against its
+               bound.
 Each phase prints its seconds.  The line before the last holds the
 per-kernel JSON; the last line is {"ok": true, "device": {...}}.
 """
@@ -1412,6 +1428,7 @@ def serve_phase(cfg, model):
     shared = share_phase(cfg, model, sched, prof["spec_bits"], mixed["prefill_width_noise"])
     return {"hinm_spmm": k1_n, "paged_decode_attn": k2_n, "sched": sched,
             "greedy_requests": requests, "greedy_prompts": prompts, "greedy_reqs": reqs,
+            "greedy_eager_reqs": runs["eager"][0],
             "decode_tok_s": line["decode_tok_s"], "served_p50_step_ms": line["p50_step_ms"],
             "profile": prof, "wall_s": line["wall_s"], "prefill_k1_per_admission": prefill_k1,
             "runs": {mode: ln for mode, (_, ln) in runs.items()}, "twins": twins,
@@ -5593,6 +5610,185 @@ def hybrid_phase(child):
 T_START = time.perf_counter()
 
 
+# --------------------------------------------------------------------------
+# phase 14: the distributed layer on a one-rank NCCL mesh
+# --------------------------------------------------------------------------
+
+MESH_SPLITS = (2, 4)        # 'model' axis sizes the T-split check stands for
+
+
+def t_slices(p, n):
+    """`p`'s tiles in `n` equal slices (views), as `n` 'model' ranks hold them."""
+    from repro_torch.core.types import PackedHiNM
+
+    t = p.t // n
+    return [PackedHiNM(p.vals[i * t:(i + 1) * t], p.vec_idx[i * t:(i + 1) * t],
+                       p.nm_idx[i * t:(i + 1) * t], t * p.config.v, p.n_in, p.config)
+            for i in range(n)]
+
+
+def t_split_k1(cfg, model, gen) -> dict:
+    """Layer 0's 7 decode projections cut into 2 and 4 T slices: K1 over
+    each slice, launched with the whole weight's plan (`plan_tiles`, what
+    `ops.hinm_spmm_shard_map` passes), concatenated, must be bitwise K1
+    over the whole, at B 4 ("rows") and 512 ("mma"); without the whole
+    plan the "mma" splits follow the slice's grid (reported).  Then one
+    quarter of gate/up timed against its bound."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import hinm_spmm as hs
+    from repro_torch.models import module as M
+
+    blk = model.blocks[0]
+    projs = {n: M.get_path(blk, n).w for n in ("attn/wq", "attn/wk", "attn/wv", "attn/wo",
+                                               "mlp/wg", "mlp/wu", "mlp/wd")}
+    out = {}
+    for b in (4, 512):
+        xs = {n: torch.randn((b, n), generator=gen, device="cuda").to(torch.bfloat16)
+              for n in {p.n_in for p in projs.values()}}
+        for n in MESH_SPLITS:
+            bits, own_plan = [], []
+            for name, p in projs.items():
+                if p.t % n:
+                    continue
+                x = xs[p.n_in]
+                whole = hs.hinm_spmm(x, p)
+                parts = t_slices(p, n)
+                cat = torch.cat([hs.hinm_spmm(x, q, plan_tiles=p.t) for q in parts], dim=-1)
+                own = torch.cat([hs.hinm_spmm(x, q) for q in parts], dim=-1)
+                bits.append(bool(torch.equal(cat, whole)))
+                own_plan.append(bool(torch.equal(own, whole)))
+            out[f"B={b} split={n}"] = dict(variant=hs.variant(b, projs["attn/wq"],
+                                                              torch.bfloat16),
+                                           bit_equal=all(bits),
+                                           bit_equal_own_plan=sum(own_plan),
+                                           projections=len(bits))
+            print(f"mesh: K1 over {n} T slices of layer 0's 7 projections at B={b} "
+                  f"({out[f'B={b} split={n}']['variant']}): concatenated bitwise the whole "
+                  f"{all(bits)} ({sum(bits)}/{len(bits)}); with each slice's own plan "
+                  f"{sum(own_plan)}/{len(bits)}", flush=True)
+            if len(bits) != len(projs):
+                raise AssertionError(f"{n} does not divide every projection's tiles")
+            if not all(bits):
+                raise AssertionError(f"T-split K1 at B={b}, {n} slices: {bits}")
+    p = projs["mlp/wg"]
+    q = t_slices(p, 4)[0]
+    x = torch.randn((4, p.n_in), generator=gen, device="cuda").to(torch.bfloat16)
+    dense = packing.unpack(q)
+    ms = time_ms(lambda: hs.hinm_spmm(x, q, plan_tiles=p.t))
+    plain_ms = time_ms(lambda: hs.hinm_spmm_ref(x, q))
+    lib_ms = time_ms(lambda: torch.matmul(x, dense.T))
+    isz = x.element_size()
+    b_ms, b_by = bound(x.numel() * isz + q.packed_bytes() + 4 * q.n_out * isz,
+                       2.0 * q.vals.numel() * 4, torch.bfloat16)
+    out["slice"] = dict(case="gate quarter", shape=[q.n_out, q.n_in], B=4, ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"mesh: one rank's quarter of gate ({q.n_out}x{q.n_in}, B=4, bf16): kernel "
+          f"{ms * 1e3:.1f} us  plain {plain_ms * 1e3:.1f} us  matmul {lib_ms * 1e3:.1f} us  "
+          f"bound {b_ms * 1e3:.2f} us ({b_by})", flush=True)
+    return out
+
+
+def mesh_phase(cfg, model, served) -> dict:
+    """Phase 14 (see the module docstring)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import mesh_view
+    from repro_torch.kernels import hinm_spmm as hs
+    from repro_torch.kernels import paged_attn as pa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import zoo
+    from repro_torch.serve import Scheduler
+    from repro_torch.train import steps
+
+    t0 = time.perf_counter()
+    store = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_mesh_"), "store")
+    collectives.init_process_group("cuda", f"file://{store}", rank=0, world_size=1)
+    mesh = make_host_mesh(model=1, device_type="cuda")
+    print(f"mesh: {dist.get_backend()} group of {dist.get_world_size()}, mesh "
+          f"{mesh_view(mesh).shape} on {mesh.device_type}", flush=True)
+    sched = Scheduler(cfg, model, max_slots=4, max_seq=256, page=16, decode_chunk=8,
+                      mesh=mesh, flightrec=True, device="cuda")
+    config = next(e for e in sched.flight.events if e.kind == "config").data
+    reqs = served["greedy_requests"]()
+    torch.cuda.synchronize()
+    hs.hinm_spmm.launches = 0
+    pa.paged_decode_attn.launches = 0
+    t1 = time.perf_counter()
+    drive(sched, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    k1_n, k2_n = hs.hinm_spmm.launches, pa.paged_decode_attn.launches
+    tokens = [r.tokens for r in reqs]
+    eager_equal = tokens == [r.tokens for r in served["greedy_eager_reqs"]]
+    graphed_equal = tokens == [r.tokens for r in served["greedy_reqs"]]
+    st = sched.stats
+    print(f"mesh: Scheduler(mesh=) served {len(reqs)} greedy requests in {wall:.2f} s "
+          f"({st.decode_tokens} decode tokens, {st.decode_tokens_per_second:.1f} decode tok/s, "
+          f"p50 step {st.step_time_percentile(50) * 1e3:.2f} ms); tokens bitwise phase 5's "
+          f"eager twin {eager_equal}, its graphed run {graphed_equal}; launches hinm_spmm "
+          f"{k1_n}, paged_decode_attn {k2_n}; config sharded {config['sharded']}, graphs "
+          f"{config.get('graphs')}, K2 backend {sched.paged_attn}, page shards "
+          f"{len(sched.kv._free_pages)}", flush=True)
+    if not eager_equal:
+        raise AssertionError("Scheduler(mesh=) tokens differ from phase 5's unsharded run")
+    if k1_n < 1 or k2_n < 1 or config["sharded"] is not True:
+        raise AssertionError(f"mesh serve: launches {k1_n} / {k2_n}, config {config}")
+    if sched.kv.n_free != sched.kv.n_slots or sched.kv.slot_len.any():
+        raise AssertionError("mesh serve: the pool did not drain")
+    line = dict(wall_s=wall, decode_tok_s=st.decode_tokens_per_second,
+                p50_step_ms=st.step_time_percentile(50) * 1e3,
+                p50_ttft_ms=st.ttft_percentile(50) * 1e3, hinm_spmm=k1_n,
+                paged_decode_attn=k2_n, eager_equal=eager_equal, graphed_equal=graphed_equal)
+    del sched
+
+    # shard_serve_step against zoo.decode_step, on a copy of the model (the
+    # step places its model and cache in place)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    toks = torch.randint(0, cfg.vocab, (4, 16), generator=gen, device="cuda")
+    cache = zoo.make_cache(cfg, 4, 256, device="cuda")
+    last = zoo.prefill(model, cfg, toks, cache)
+    ref_cache = {k: v.clone() for k, v in cache.items()}
+    tok = zoo.logits_fn(model, cfg, last)[:, :cfg.vocab].argmax(-1)[:, None].int()
+    ref_tok = tok.clone()
+    _, decode_fn = steps.make_serve_steps(cfg, mesh)
+    step, _, _ = steps.shard_serve_step(decode_fn, cfg, mesh, copy.deepcopy(model), cache, 4)
+    # the sharded steps alone between the count's reset and its read: each
+    # of the 7 projections a layer a step is one K1 launch over the rank's
+    # tiles (`ops.hinm_spmm_shard_map`)
+    outs = []
+    torch.cuda.synchronize()
+    hs.hinm_spmm.launches = 0
+    for _ in range(4):
+        lg = step(tok)[0].full_tensor()
+        outs.append(lg)
+        tok = lg[:, :cfg.vocab].argmax(-1)[:, None].int()
+    torch.cuda.synchronize()
+    shard_k1 = hs.hinm_spmm.launches
+    bits = []
+    for lg in outs:
+        ref = zoo.decode_step(model, cfg, ref_tok, ref_cache)
+        bits.append(bool(torch.equal(lg, ref)))
+        ref_tok = ref[:, :cfg.vocab].argmax(-1)[:, None].int()
+    calls = dict(step.ctx.calls)
+    want_k1 = 7 * cfg.n_layers * 4
+    print(f"mesh: shard_serve_step decode, 4 steps: logits bitwise zoo.decode_step {bits}; "
+          f"shard-local paths {calls}; K1 launches {shard_k1} (7 x {cfg.n_layers} layers x "
+          f"4 steps = {want_k1})", flush=True)
+    if not all(bits) or shard_k1 != want_k1 or calls.get("hinm_spmm_shard_map", 0) != want_k1 \
+            or calls.get("seq_parallel_decode", 0) < cfg.n_layers * 4:
+        raise AssertionError(f"shard_serve_step: bits {bits}, K1 launches {shard_k1}, "
+                             f"calls {calls}")
+    del step, cache, ref_cache
+    free_card()
+    split = t_split_k1(cfg, model, gen)
+    dist.destroy_process_group()
+    return dict(serve=line, decode_bits=bits, calls=calls, shard_k1=shard_k1, t_split=split,
+                wall_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     phase("1. device")
     if not torch.cuda.is_available():
@@ -5668,6 +5864,9 @@ def main() -> int:
 
     phase("13. hybrid")
     hyb = hybrid_phase(hchild)
+
+    phase("14. mesh")
+    mesh = mesh_phase(cfg, model, served)
     phase()
 
     front_k1s = [c for f in front.values() for c in f["k1"]] + hyb["k1"]
@@ -5693,6 +5892,8 @@ def main() -> int:
     # xlstm has no attention: K1 alone runs on its path (K2's 0 asserted)
     by_path["hinm_spmm"] |= {f"xlstm {k}": v["graphed"]["hinm_spmm"]
                              for k, v in ssm["serve"]["runs"].items()}
+    for name in by_path:
+        by_path[name]["mesh"] = mesh["serve"][name]
     for name, counts in by_path.items():
         if min(counts.values()) < 1:
             raise AssertionError(f"{name} was not launched on every path: {counts}")
@@ -5721,6 +5922,11 @@ def main() -> int:
                        "wd 4096x12288; attention: q/o 4096x4096, k/v 256x4096, wu, wd; layers 0 "
                        f"and 2 gyro-pruned), bf16, at B 4 (rows) and B {HYB_PREFILL_B} (mma)")},
              prefill=k1_prefill_layer(k1, served["prefill_k1_per_admission"]),
+             mesh=dict(t_split={k: v for k, v in mesh["t_split"].items() if k != "slice"},
+                       slice=mesh["t_split"]["slice"],
+                       sharded_decode_bit_equal=all(mesh["decode_bits"]),
+                       shard_local_calls=mesh["calls"],
+                       sharded_decode_launches=mesh["shard_k1"]),
              extension=layer.pop("extension"),
              **{**layer,
                 "max_abs_err": max([layer["max_abs_err"]] + [

@@ -29,6 +29,14 @@ ARCH_IDS = (
 PAPER_IDS = ("bert_base", "deit_base")
 PORTED_IDS = ARCH_IDS + PAPER_IDS
 
+SHAPES = {
+    # name: (seq_len, global_batch, kind) — the launch cells' input shapes
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
@@ -79,6 +87,10 @@ class ArchConfig:
     @property
     def kv_out_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    def sub_quadratic(self) -> bool:
+        """Can this arch run 500k-token decode? (recurrent / windowed only)"""
+        return self.family in ("hybrid", "ssm")
 
     def reduced(self, **overrides) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""

@@ -783,11 +783,12 @@ cudaError_t launch_mma_bm(const __nv_bfloat16* xt, float* part, const void* vals
 
 cudaError_t launch_mma(const void* x, const void* vals, const void* nm_idx,
                        const void* vec_idx, void* y, void* scratch, int B, int n_in,
-                       int T_, int V, int K, int Kn, int N, int M, int E, cudaStream_t s) {
+                       int T_, int V, int K, int Kn, int N, int M, int E, int T_plan,
+                       cudaStream_t s) {
   if (scratch == nullptr || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)
     return cudaErrorInvalidValue;
   const int Bp = pad_batch(B);
-  const MmaPlan plan(B, T_, V, K);
+  const MmaPlan plan(B, T_plan, V, K);
   auto* xt = static_cast<__nv_bfloat16*>(scratch);
   float* part = reinterpret_cast<float*>(xt + (size_t)E * n_in * Bp);
   if ((long long)E * (Bp / 64) > 65535) return cudaErrorInvalidValue;
@@ -812,31 +813,36 @@ extern "C" int hinm_spmm_variant(int B, int V, int M, int dtype) {
 // bf16 elements of the scratch a call of `variant` over E experts needs: for
 // variant B each expert's transposed x, then each expert's f32 partial sums
 // of a split K; 0 for variant A.  The plan is one expert's (that of a
-// launch of the expert alone, so a stack's expert gives its bits).
+// launch of the expert alone, so a stack's expert gives its bits), made for
+// T_plan tiles (see hinm_spmm_launch).
 extern "C" long long hinm_spmm_scratch_elems(int variant, int E, int B, int n_in, int T_,
-                                             int V, int K) {
+                                             int V, int K, int T_plan) {
   if (variant != 1) return 0;
-  const MmaPlan plan(B, T_, V, K);
+  const MmaPlan plan(B, T_plan, V, K);
   return (long long)E * ((long long)n_in * pad_batch(B) +
                          (plan.splits > 1 ? 2LL * plan.splits * B * T_ * V : 0));
 }
 
 // Launch `variant` over a stack of E experts (E = 1: one matrix); B is one
-// expert's rows.  Returns the cudaError_t of the launch (the Python wrapper
-// raises when it is not 0).  cudaErrorInvalidValue: a shape or variant the
-// kernel does not take.
+// expert's rows.  T_plan is the tile count "mma" sizes its plan (BM, the
+// K split) for: T_ for a whole matrix; a rank's T_ tiles of a T-sharded
+// weight pass the whole weight's count, so each tile's sums run in the
+// order the whole launch runs them and the slices concatenate bit for bit
+// to it ("rows" has no split and ignores it).  Returns the cudaError_t of
+// the launch (the Python wrapper raises when it is not 0).
+// cudaErrorInvalidValue: a shape or variant the kernel does not take.
 extern "C" int hinm_spmm_launch(int variant, int E, const void* x, const void* vals,
                                 const void* nm_idx, const void* vec_idx, void* y,
                                 void* scratch, int B, int n_in, int T_, int V, int K, int Kn,
-                                int N, int M, int dtype, void* stream) {
+                                int N, int M, int dtype, int T_plan, void* stream) {
   if (V <= 0 || V % 8 != 0 || N <= 0 || M <= N || K <= 0 || K % M != 0 ||
-      Kn != K / M * N || B <= 0 || T_ <= 0 || n_in <= 0 || E <= 0)
+      Kn != K / M * N || B <= 0 || T_ <= 0 || n_in <= 0 || E <= 0 || T_plan < T_)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
     if (dtype != 1 || !mma_takes(V, M)) return (int)cudaErrorInvalidValue;
     return (int)launch_mma(x, vals, nm_idx, vec_idx, y, scratch, B, n_in, T_, V, K, Kn, N,
-                           M, E, s);
+                           M, E, T_plan, s);
   }
   if (variant != 0) return (int)cudaErrorInvalidValue;
   return (int)(dtype == 1

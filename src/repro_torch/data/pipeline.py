@@ -75,3 +75,26 @@ class SyntheticLMData:
         while True:
             yield self.batch(step)
             step += 1
+
+
+def make_batch_specs(seq_len: int, global_batch: int, vocab: int, frontend: str = "",
+                     d_model: int = 0, frontend_tokens: int = 0) -> dict:
+    """One training batch's shapes and dtypes as meta tensors (the
+    reference's ShapeDtypeStructs): tokens and labels (B, S) int32; a vlm
+    (``frontend="patch"``) takes `frontend_tokens` patch rows of embeds
+    before S - P tokens, with labels over all S; an encoder-decoder
+    (``"frames"``) S frames of embeds and S // 4 tokens and labels."""
+    meta = dict(device="meta")
+    i32 = dict(dtype=torch.int32, **meta)
+    specs = {"tokens": torch.empty((global_batch, seq_len), **i32),
+             "labels": torch.empty((global_batch, seq_len), **i32)}
+    if frontend == "patch":
+        specs["embeds"] = torch.empty((global_batch, frontend_tokens, d_model),
+                                      dtype=torch.bfloat16, **meta)
+        specs["tokens"] = torch.empty((global_batch, seq_len - frontend_tokens), **i32)
+    elif frontend == "frames":
+        specs["embeds"] = torch.empty((global_batch, seq_len, d_model),
+                                      dtype=torch.bfloat16, **meta)
+        specs["tokens"] = torch.empty((global_batch, seq_len // 4), **i32)
+        specs["labels"] = torch.empty((global_batch, seq_len // 4), **i32)
+    return specs

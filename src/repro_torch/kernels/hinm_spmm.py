@@ -41,11 +41,11 @@ def _load():
     if _lib is None:
         lib = build.load("hinm_spmm")
         lib.hinm_spmm_launch.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                                         + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                                         + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         lib.hinm_spmm_launch.restype = ctypes.c_int
         lib.hinm_spmm_variant.argtypes = [ctypes.c_int] * 4
         lib.hinm_spmm_variant.restype = ctypes.c_int
-        lib.hinm_spmm_scratch_elems.argtypes = [ctypes.c_int] * 7
+        lib.hinm_spmm_scratch_elems.argtypes = [ctypes.c_int] * 8
         lib.hinm_spmm_scratch_elems.restype = ctypes.c_longlong
         _lib = lib
     return _lib
@@ -58,10 +58,10 @@ def _variant(b: int, v: int, m: int, dtype: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch(var: int, e: int, b: int, n_in: int, t: int, v: int, k: int) -> int:
+def _scratch(var: int, e: int, b: int, n_in: int, t: int, v: int, k: int, t_plan: int) -> int:
     """bf16 elements of scratch a call of variant index `var` over `e`
     experts of `b` rows each needs."""
-    return _load().hinm_spmm_scratch_elems(var, e, b, n_in, t, v, k)
+    return _load().hinm_spmm_scratch_elems(var, e, b, n_in, t, v, k, t_plan)
 
 
 def variant(b: int, p: PackedHiNM, dtype: torch.dtype) -> str:
@@ -70,7 +70,8 @@ def variant(b: int, p: PackedHiNM, dtype: torch.dtype) -> str:
     return VARIANTS[_variant(b, p.config.v, p.config.m, _DTYPES[dtype])]
 
 
-def hinm_spmm(x: torch.Tensor, p: PackedHiNM, variant: str | None = None) -> torch.Tensor:
+def hinm_spmm(x: torch.Tensor, p: PackedHiNM, variant: str | None = None,
+              plan_tiles: int | None = None) -> torch.Tensor:
     """y (B, n_out) = x (B, n_in) @ W_packed^T through the CUDA kernel; for
     an expert stack (vals (E, T, V, Kn)), y (E, C, n_out) = each expert's
     x (E, C, n_in) rows against its own weights, in one launch.
@@ -81,8 +82,10 @@ def hinm_spmm(x: torch.Tensor, p: PackedHiNM, variant: str | None = None) -> tor
     side returns cudaErrorInvalidValue).  `variant` ("rows" or "mma")
     overrides the C dispatch's choice: the speculative verify holds its
     launches to the variant decode runs (`transformer.verify_step`), and
-    chip_smoke measures the crossover with it.  Counts one launch in
-    ``hinm_spmm.launches``."""
+    chip_smoke measures the crossover with it.  `plan_tiles`: the tile
+    count "mma" sizes its plan for (default `p`'s own); a rank's tiles of a
+    T-sharded weight pass the whole weight's, so the slices concatenate to
+    the whole launch's bits.  Counts one launch in ``hinm_spmm.launches``."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"hinm_spmm: unknown variant {variant!r}; choose from {VARIANTS}")
     cfg = p.config
@@ -116,13 +119,16 @@ def hinm_spmm(x: torch.Tensor, p: PackedHiNM, variant: str | None = None) -> tor
         return y
     dt = _DTYPES[x.dtype]
     var = _variant(b, v, cfg.m, dt) if variant is None else VARIANTS.index(variant)
-    n_scratch = _scratch(var, e, b, p.n_in, t, v, k)
+    t_plan = t if plan_tiles is None else int(plan_tiles)
+    if t_plan < t:
+        raise ValueError(f"hinm_spmm: a plan for {t_plan} tiles cannot cover {t}")
+    n_scratch = _scratch(var, e, b, p.n_in, t, v, k, t_plan)
     scratch = (torch.empty(n_scratch, dtype=x.dtype, device=x.device) if n_scratch
                else None)
     status = _load().hinm_spmm_launch(
         var, e, x.data_ptr(), p.vals.data_ptr(), p.nm_idx.data_ptr(), p.vec_idx.data_ptr(),
         y.data_ptr(), scratch.data_ptr() if n_scratch else None, b, p.n_in, t, v, k, kn,
-        cfg.n, cfg.m, dt, torch.cuda.current_stream(x.device).cuda_stream)
+        cfg.n, cfg.m, dt, t_plan, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "hinm_spmm")
     hinm_spmm.launches += 1
     return y

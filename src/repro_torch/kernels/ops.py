@@ -25,12 +25,14 @@ per XLA trace.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import torch
 
 from repro_torch import perf_knobs
 
 from repro_torch.core.types import PackedHiNM
+from repro_torch.distributed import collectives
 from repro_torch.kernels import hinm_spmm as _spmm
 from repro_torch.kernels import nm_select as _nmsel
 from repro_torch.kernels import paged_attn as _pattn
@@ -73,13 +75,58 @@ def _count_dispatch(decision: str, reason: str) -> None:
                        labels={"decision": decision, "reason": reason}).inc()
 
 
+@dataclasses.dataclass
+class TileShard(PackedHiNM):
+    """This rank's tiles of a packed weight whose tile axis T is sharded
+    over the mesh's 'model' axis (`distributed.sharding`'s spec): a packed
+    matrix of its own, ``n_out`` its T_local * V rows, ``full_n_out`` the
+    whole weight's.  Tiles are independent, so the rank's K1 over them
+    gives its block of the output columns with no collective."""
+
+    full_n_out: int = 0
+
+
+def hinm_spmm_shard_map(x: torch.Tensor, p: PackedHiNM, backend: str = "auto",
+                        variant: str | None = None) -> torch.Tensor | None:
+    """The T-sharded packed matmul (the reference's `hinm_spmm_shard_map`):
+    this rank's rows of x (its batch shard) against its own tiles — K1 on
+    a CUDA tensor, the plain version on a CPU one — giving its block of
+    the output columns, sharded over 'model', with no collective inside.
+    Returns None where the reference's does (no mesh, no 'model' axis, an
+    expert stack, a weight whose tiles are not sharded), and the caller
+    takes the whole weight instead."""
+    ctx = collectives.current()
+    if ctx is None or ctx.size("model") == 0:
+        return None
+    if not isinstance(p, TileShard) or p.vals.dim() != 3:
+        return None
+    ctx.note("hinm_spmm_shard_map")
+    local = _local(p)
+    if _resolve(backend, x, extra=("oracle",)) == "cuda":
+        # the whole weight's plan: the ranks' blocks are the whole launch's bits
+        return _spmm.hinm_spmm(x, local, variant, plan_tiles=p.full_n_out // p.config.v)
+    return hinm_matmul(x, local, backend, variant)
+
+
+def _local(p: TileShard) -> PackedHiNM:
+    return PackedHiNM(p.vals, p.vec_idx, p.nm_idx, p.n_out, p.n_in, p.config)
+
+
 def hinm_matmul(x: torch.Tensor, p: PackedHiNM, backend: str = "auto",
                 variant: str | None = None) -> torch.Tensor:
     """y (..., n_out) = x (..., n_in) @ W_packed^T (rows in packed order).
     For an expert stack (`p`'s fields lead with E) x is (E, C, n_in) and
     y (E, C, n_out): one launch over every expert, each against its own
     weights.  `variant` picks the CUDA kernel's variant ("rows" or "mma";
-    None = its dispatch's choice); the plain versions ignore it."""
+    None = its dispatch's choice); the plain versions ignore it.
+
+    A `TileShard` (a sharded step's weight) runs the T-sharded matmul
+    under `KNOBS.packed_shard_map`, and its output blocks are gathered over
+    'model' for the consumer; else its tiles are gathered into the whole
+    weight first."""
+    if isinstance(p, TileShard):
+        y = _tile_sharded(x.reshape(-1, x.shape[-1]), p, backend, variant)
+        return y.reshape(*x.shape[:-1], p.full_n_out)
     stack = p.vals.dim() == 4
     if stack and (x.dim() != 3 or x.shape[0] != p.vals.shape[0]):
         raise ValueError(f"hinm_matmul: an expert stack of {p.vals.shape[0]} takes x "
@@ -94,6 +141,23 @@ def hinm_matmul(x: torch.Tensor, p: PackedHiNM, backend: str = "auto",
     else:
         y = _spmm.hinm_spmm_oracle(xb, p)
     return y if stack else y.reshape(*lead, p.n_out)
+
+
+def _tile_sharded(x, p: TileShard, backend, variant) -> torch.Tensor:
+    ctx = collectives.current()
+    if ctx is None:
+        raise ValueError("a TileShard weight runs only inside a sharded step "
+                         "(train.steps.shard_serve_step)")
+    y = None
+    if perf_knobs.KNOBS.packed_shard_map:
+        y = hinm_spmm_shard_map(x, p, backend, variant)
+    if y is not None:
+        return collectives.gather_cat(y, ctx.mesh, "model", dim=-1)
+    whole = PackedHiNM(*(collectives.gather_cat(getattr(p, f), ctx.mesh, "model", dim=-3 if
+                                                f != "vec_idx" else -2)
+                         for f in ("vals", "vec_idx", "nm_idx")),
+                       p.full_n_out, p.n_in, p.config)
+    return hinm_matmul(x, whole, backend, variant)
 
 
 def paged_attention(

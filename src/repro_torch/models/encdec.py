@@ -260,6 +260,17 @@ def reset_cache(cfg, cache) -> None:
     cache["enc_len"].zero_()
 
 
+def cache_shard_roles(cfg, cache) -> dict:
+    """Sharding role per cache leaf: the decoder's self-attention cache as
+    the decoder-only stack's; the cached encoder output and length are
+    per-slot encoder leaves (batch at axis 0)."""
+    if paging.is_paged(cache["self"]):
+        self_roles = paging.paged_roles(cache["self"])
+    else:
+        self_roles = {"k": "kv", "v": "kv", "pos": "slot", "kpos": "slot"}
+    return {"self": self_roles, "enc_out": "enc", "enc_len": "enc"}
+
+
 def page_geometry(cfg, max_seq: int, page: int) -> dict:
     """Only the decoder's self-attention K/V is paged; the encoder output is
     a per-slot stripe (written at admission, read-only after)."""

@@ -292,6 +292,20 @@ def cache_batch_axes(cfg, cache):
     return tuple(one(c) for c in cache)
 
 
+def cache_shard_roles(cfg, cache) -> tuple:
+    """Sharding role per cache leaf: paged attention stacks shard their
+    page axis, stripe ones their slot axis, and the RG-LRU stacks are
+    per-slot state (batch over dp, the feature dim over 'model')."""
+    def one(c):
+        if paging.is_paged(c):
+            return paging.paged_roles(c)
+        if "k" in c:
+            return {"k": "kv", "v": "kv", "pos": "slot", "kpos": "slot"}
+        return {k: "state" for k in c}
+
+    return tuple(one(c) for c in cache)
+
+
 def page_geometry(cfg, max_seq: int, page: int) -> dict:
     """The live view of an attention stack is the ring, not max_seq: pages
     cover ``min(window, max_seq)`` rows and are reused in place once

@@ -9,11 +9,13 @@ donated its buffers.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import perf_knobs
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops as kops
 from repro_torch.models import module as M
 from repro_torch.models import paging
@@ -42,6 +44,64 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 # attention — chunked online softmax (flash-style in plain torch)
 # ---------------------------------------------------------------------------
+
+
+def _seq_parallel_decode_attn(q, ck, cv, q_pos, kpos, window: int, ctx) -> torch.Tensor:
+    """Sequence-parallel decode attention (the reference's
+    `_seq_parallel_decode_attn`): the stripe's sequence axis is split over
+    'model'; each rank scores its own slice of the cache (``ck``/``cv``
+    (B, S_local, KV, hd), ``kpos`` (B, S_local)) and the ranks combine the
+    running max (all-reduce MAX) and the sums ``l`` and ``o`` (all-reduce
+    SUM), O(B * H * hd) values instead of the cache.  On one rank it is
+    `_attn_qchunk` over a single KV block, bit for bit."""
+    ctx.note("seq_parallel_decode")
+    b, sq, h, hd = q.shape
+    kv = ck.shape[2]
+    qf = (q.float() * hd ** -0.5).reshape(b, sq, kv, h // kv, hd)
+    s = torch.einsum("bqkgd,bckd->bqkgc", qf, ck.float())       # (B,1,KV,G,S_loc)
+    msk = kpos[:, None, :] <= q_pos[:, :, None]
+    if window:
+        msk = msk & (kpos[:, None, :] > (q_pos[:, :, None] - window))
+    s = torch.where(msk[:, :, None, None, :], s, NEG_INF)
+    m = collectives.all_reduce(s.amax(dim=-1), ctx.mesh, "model", op=dist.ReduceOp.MAX)
+    p = torch.exp(s - m[..., None])
+    l = collectives.all_reduce(p.sum(dim=-1), ctx.mesh, "model")
+    o = collectives.all_reduce(torch.einsum("bqkgc,bckd->bqkgd", p, cv.float()),
+                               ctx.mesh, "model")
+    out = o / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _seq_sharded_stripe(q, k, v, positions, cache, cfg, ctx, kv_block: int) -> torch.Tensor:
+    """A stripe layer whose K/V hold this rank's slice of the sequence
+    (S_local rows of S = S_local * n_model; ``kpos`` whole): the decode
+    step's new row lands on the rank that owns its position, then the
+    attention is sequence-parallel (`KNOBS.seq_parallel_decode`), or over
+    the gathered stripe."""
+    pos = cache["pos"]
+    ck, cv, ckpos = cache["k"], cache["v"], cache["kpos"]
+    b, s = positions.shape
+    s_loc, s_all = ck.shape[1], ckpos.shape[1]
+    m, _ = collectives.axis_rank(ctx.mesh, "model")
+    if s != 1:
+        raise ValueError(f"a sequence-sharded stripe takes one decode row a step, not {s}")
+    slot = torch.remainder(pos, s_all) if cfg.window else pos
+    start = torch.clamp(slot, 0, s_all - s)
+    idx = (start[:, None] + torch.arange(s, device=q.device)[None, :]).long()
+    bidx = torch.arange(b, device=q.device)[:, None]
+    ckpos[bidx, idx] = positions.to(torch.int32)
+    loc = idx - m * s_loc
+    mine = (loc >= 0) & (loc < s_loc)
+    loc = torch.clamp(loc, 0, s_loc - 1)
+    for leaf, new in ((ck, k), (cv, v)):
+        keep = leaf[bidx, loc]
+        leaf[bidx, loc] = torch.where(mine[..., None, None], new.to(leaf.dtype), keep)
+    kpos_loc = ckpos[:, m * s_loc:(m + 1) * s_loc]
+    if perf_knobs.KNOBS.seq_parallel_decode:
+        return _seq_parallel_decode_attn(q, ck, cv, positions, kpos_loc, cfg.window, ctx)
+    fk = collectives.gather_cat(ck, ctx.mesh, "model", dim=1)
+    fv = collectives.gather_cat(cv, ctx.mesh, "model", dim=1)
+    return _attn_chunked(q, fk, fv, positions, ckpos, True, cfg.window, kv_block)
 
 
 def _attn_qchunk(qf, kb, vb, q_pos, pb, causal: bool, window: int) -> torch.Tensor:
@@ -134,6 +194,12 @@ def _attn_qchunk_blocks(qf, kb, vb, q_pos, pb, lo: int, hi: int, causal: bool,
     return _attn_qchunk(qf, kb[:, lo:hi], vb[:, lo:hi], q_pos, pb[:, lo:hi], causal, window)
 
 
+def _seq_sharded():
+    """The current mesh context if this step's stripes are sequence-sharded."""
+    ctx = collectives.current()
+    return ctx if ctx is not None and ctx.seq_sharded else None
+
+
 class Attention(nn.Module):
     def __init__(self, wq: M.Linear, wk: M.Linear, wv: M.Linear, wo: M.Linear):
         super().__init__()
@@ -196,6 +262,9 @@ def attention(
         out = kops.paged_attention(q, ck, cv, ckpos, bt, positions.to(torch.int32),
                                    window=cfg.window, backend=backend)
         pos += s
+    elif _seq_sharded():
+        out = _seq_sharded_stripe(q, k, v, positions, cache, cfg, _seq_sharded(), kv_block)
+        cache["pos"] += s
     else:
         # Stripe cache: per-slot absolute positions ("kpos") drive the
         # causal/window mask; every lane writes at its own offset (clamped

@@ -32,6 +32,24 @@ SENTINEL_PAGE = 1
 N_RESERVED = 2
 
 
+def shard_geometry(n_alloc: int, n_shards: int = 1) -> dict:
+    """Total physical page count of an ``n_shards``-way sharded pool.
+
+    The page axis is the sharded axis of every pool leaf, so the total page
+    count — allocatable pages plus the two reserved ones (scratch and
+    sentinel are pool-global: they live on the shard that owns ids 0/1) —
+    must divide the shards.  The count is rounded up, so provisioning never
+    shrinks; the padding pages join the free lists as ordinary pages.
+
+    Returns dict(n_pages, n_alloc, pages_per_shard).
+    """
+    n_shards = max(1, int(n_shards))
+    total = N_RESERVED + max(1, int(n_alloc))
+    total = -(-total // n_shards) * n_shards
+    return {"n_pages": total, "n_alloc": total - N_RESERVED,
+            "pages_per_shard": total // n_shards}
+
+
 def geometry(view_len: int, page: int) -> dict:
     """Resolve page geometry for a logical view of ``view_len`` rows.
 
@@ -92,6 +110,17 @@ def gather_view(pool: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
 def is_paged(cache) -> bool:
     """True for a (per-layer slice of a) paged attention cache dict."""
     return isinstance(cache, dict) and "bt" in cache
+
+
+# sharding role per paged-pool leaf (`distributed.sharding.cache_specs`):
+# pool leaves shard their page axis, per-slot leaves their slot axis
+PAGED_ROLES = {"k": "page", "v": "page", "kpos": "page",
+               "pos": "slot", "bt": "slot", "alloc": "slot"}
+
+
+def paged_roles(cache: dict) -> dict:
+    """Sharding-role map of one paged attention cache dict."""
+    return {k: PAGED_ROLES.get(k, "slot") for k in cache}
 
 
 def scatter_rows(pool: torch.Tensor, stripe: torch.Tensor, row: int,

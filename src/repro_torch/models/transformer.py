@@ -223,6 +223,14 @@ def cache_batch_axes(cfg, cache) -> dict:
     return {name: None if name in pooled else 1 for name in cache}
 
 
+def cache_shard_roles(cfg, cache) -> dict:
+    """Sharding role per cache leaf: a paged pool shards its page axis, a
+    stripe its slot axis."""
+    if paging.is_paged(cache):
+        return paging.paged_roles(cache)
+    return {"k": "kv", "v": "kv", "pos": "slot", "kpos": "slot"}
+
+
 def page_geometry(cfg, max_seq: int, page: int) -> dict:
     """Paged-pool geometry: the full `max_seq` view is block-allocated."""
     return paging.geometry(max_seq, page)

@@ -183,6 +183,13 @@ def cache_batch_axes(cfg, cache):
     return T.map(lambda _: 1, cache)
 
 
+def cache_shard_roles(cfg, cache):
+    """Every leaf is O(1)-per-slot recurrent state (n_p, B, feat...): batch
+    over dp, the feature dim over 'model'.  There is no paged layout (the
+    pool falls back to stripes)."""
+    return T.map(lambda _: "state", cache)
+
+
 def rewind_cache(cfg, cache) -> None:
     """A reused prefill template's state back to pristine, in place: a
     recurrent prefill starts from the state it is given, so the last

@@ -10,6 +10,7 @@ family (`hybrid`: RG-LRU and sliding-window attention).
   make_cache(cfg, batch, max_seq, ...)    -> decode cache
   reset_cache(cfg, cache)                 -> the cache pristine, in place
   cache_batch_axes(cfg, cache)            -> slot axis per cache leaf
+  cache_shard_roles(cfg, cache)           -> sharding role per cache leaf
   prefill / decode_step                   -> serving
   verify_step / cache_rollback / cache_position -> speculative decoding
   extend_step / paged_map / paged_copy_page / paged_sweep -> prefix sharing
@@ -70,6 +71,15 @@ def cache_batch_axes(cfg, cache):
     buffers), in the cache's own structure: the slot pool inserts and
     resets stripe slots with it."""
     return model_for(cfg).cache_batch_axes(cfg, cache)
+
+
+def cache_shard_roles(cfg, cache):
+    """The sharding role of each cache leaf, in the cache's own structure:
+    the family's declaration of its layout to
+    `distributed.sharding.cache_specs` — "page" (a shared pool leaf, its
+    page axis sharded), "kv" (stripe K/V), "slot" (per-slot bookkeeping),
+    "enc" (cached encoder leaves), "state" (recurrent state)."""
+    return model_for(cfg).cache_shard_roles(cfg, cache)
 
 
 def reset_cache(cfg, cache) -> None:

@@ -200,8 +200,8 @@ def _pool_snapshot(kv) -> dict:
     if kv.paged:
         snap.update({
             "n_pages": kv.n_pages,
-            # one free list (the reference keeps one per page shard)
-            "free_pages": [list(kv._free_pages)],
+            # one free list a page shard, as the reference keeps them
+            "free_pages": [list(d) for d in kv._free_pages],
             "page_ref": [int(x) for x in kv._page_ref],
             "block_tables": {str(s): list(p)
                              for s, p in sorted(kv._slot_pages.items())},

@@ -25,7 +25,9 @@ current stream after whatever was queued before it, so the graphs never
 run concurrently and may reuse each other's intermediate memory.
 
 On a CPU device the body runs eagerly every time (the caller chose that
-device), and so does every body inside the private `_eager()` block,
+device), and so does every body of a cache built with ``eager=True`` (a
+sharded scheduler's: its bodies hold collectives) and every body inside
+the private `_eager()` block,
 the counterpart of `jax.disable_jit` that chip_smoke's graphed-vs-eager
 gate uses.  A capture or replay that fails raises.
 
@@ -77,8 +79,10 @@ class GraphCache:
     capture took; `on_build(key)` is called once per key, when its
     program is built."""
 
-    def __init__(self, device: torch.device, on_build=None):
+    def __init__(self, device: torch.device, on_build=None, eager: bool = False):
         self.device = device
+        # every body eagerly (a sharded scheduler's programs hold collectives)
+        self.eager = eager
         self._graphs: dict = {}
         self._pool = None
         self._built: set = set()
@@ -102,7 +106,7 @@ class GraphCache:
     def run(self, key, body) -> None:
         """Run `body` as the graph of `key`: eagerly (then captured) on its
         first use, replayed after."""
-        if self.device.type != "cuda" or _run_eager:
+        if self.device.type != "cuda" or _run_eager or self.eager:
             with self._building(key):
                 body()
             return

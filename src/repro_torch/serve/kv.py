@@ -45,6 +45,21 @@ the row reservation made at insert.  ``rollback`` commits a speculative
 verify's accepted rows and sweeps the rest; ``rollback_sweeps`` counts the
 sweeps applied to the pool.
 
+Sharded mode (``mesh=``, a `DeviceMesh`; one process per rank, every rank
+making the same host decisions): `paging.shard_geometry` rounds the page
+count up so the page axis divides the dp ranks, the free list is one per
+page shard (shard of page p = p // pages_per_shard), and allocation draws
+from the fullest shard first (ties: the lowest), so the page ids are the
+reference's.  `specs` are the pool's `distributed.sharding.cache_specs`,
+the layout the reference gives it.  The storage is replicated: every rank
+holds the whole pool, so every program (and K2) runs over it unchanged.
+Only the decode chunk splits the work: `data_parallel(lo, hi)` gives a
+view of slots lo..hi-1 over the whole pool (the rank's decode lanes);
+when it closes, every slot row comes from its rank and every page from
+the lowest rank whose slots map it (its writes went to its own pages), so
+the copies agree again.  Sharded storage waits for a decode that does not
+read the whole pool.
+
 Observability (the reference's, from the scheduler's telemetry bundle and
 flight recorder): with ``metrics=`` the pool keeps occupancy gauges
 (``kv_slots_in_use``, ``kv_pool_bytes``, ``kv_free_pages`` — its ``min``
@@ -58,19 +73,42 @@ second pool's events).
 from __future__ import annotations
 
 import collections
+import contextlib
 
 import numpy as np
 import torch
 
 from repro_torch import tree as T
 from repro_torch.device import to_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import paging, zoo
+
+def _pools(cache):
+    """Every paged attention pool dict of a cache tree."""
+    if paging.is_paged(cache):
+        yield cache
+    elif isinstance(cache, dict):
+        for v in cache.values():
+            yield from _pools(v)
+    elif isinstance(cache, (list, tuple)):
+        for v in cache:
+            yield from _pools(v)
+
 
 class SlotKVCache:
     def __init__(self, cfg, n_slots: int, max_seq: int, dtype=None,
                  page: int | None = None, n_pages: int | str | None = None,
-                 device="cuda", metrics=None, metrics_labels=None, flight=None,
+                 device="cuda", mesh=None, metrics=None, metrics_labels=None, flight=None,
                  flight_label: str | None = None, **cache_kw):
+        self.mesh = mesh
+        # page-axis shard count: the product of the mesh's dp axes (1 when
+        # unsharded)
+        self._n_shards = 1
+        if mesh is not None:
+            view = shd.mesh_view(mesh)
+            for a in shd.batch_axes(mesh):
+                self._n_shards *= max(1, view.shape.get(a, 1))
         self._flight = flight
         self._flight_pool = flight_label
         self._m_slots = self._m_free_pages = self._m_used_pages = None
@@ -92,9 +130,12 @@ class SlotKVCache:
                 alloc_req = n_slots * self.n_bt  # full stripe capacity
             else:
                 alloc_req = int(n_pages)
-            self.n_pages = paging.N_RESERVED + max(1, alloc_req)
+            sg = paging.shard_geometry(alloc_req, self._n_shards)
+            self.n_pages = sg["n_pages"]
+            self._pages_per_shard = sg["pages_per_shard"]
             self._page_ref = np.zeros((self.n_pages,), np.int64)
         self.cache = None
+        self.specs = None
         self.reset_all()
         if metrics is not None:
             lb = dict(metrics_labels or {})
@@ -138,9 +179,12 @@ class SlotKVCache:
         return max(1, -(-rows // self.page))
 
     def _pop_pages(self, n: int) -> list[int]:
-        """Draw `n` free pages; each leaves with one reference, the
-        caller's."""
-        pages = [self._free_pages.popleft() for _ in range(n)]
+        """Draw `n` free pages, fullest shard first (ties: the lowest
+        shard); each leaves with one reference, the caller's."""
+        pages = []
+        for _ in range(n):
+            sh = max(range(self._n_shards), key=lambda i: (len(self._free_pages[i]), -i))
+            pages.append(self._free_pages[sh].popleft())
         self._page_ref[pages] = 1
         return pages
 
@@ -149,7 +193,7 @@ class SlotKVCache:
             assert self._page_ref[p] == 0, (
                 f"page {p} returned to the free list with {self._page_ref[p]} "
                 "live references")
-            self._free_pages.append(p)
+            self._free_pages[p // self._pages_per_shard].append(p)
 
     def _ids(self, pages) -> torch.Tensor:
         """`pages` as an (n_bt,) device id vector padded with the scratch
@@ -198,7 +242,49 @@ class SlotKVCache:
 
     @property
     def n_free_pages(self) -> int:
-        return len(self._free_pages) if self.paged else 1 << 62
+        return sum(len(d) for d in self._free_pages) if self.paged else 1 << 62
+
+    # -- data-parallel decode ----------------------------------------------------
+
+    @contextlib.contextmanager
+    def data_parallel(self, lo: int, hi: int):
+        """A view of slots lo..hi-1 (each leaf cut on its slot axis, the pool
+        leaves whole), which this rank's decode lanes write.  On exit the
+        ranks' writes are merged (module docstring): the slot rows and the
+        pages their block tables map are all-gathered, not the pool."""
+        axes = zoo.cache_batch_axes(self.cfg, self.cache)
+        view = T.map(lambda leaf, a: leaf if a is None else leaf.narrow(a, lo, hi - lo),
+                     self.cache, axes)
+        yield view
+        if self.mesh is None or hi - lo == self.n_slots:
+            return
+        dp = shd.batch_axes(self.mesh)
+        n = hi - lo
+        dp = dp if len(dp) > 1 else dp[0]
+
+        def merge_rows(leaf, a):
+            if a is not None:
+                leaf.copy_(C.gather_cat(leaf.narrow(a, lo, n).contiguous(), self.mesh, dp,
+                                        dim=a))
+
+        T.map(merge_rows, self.cache, axes)
+        n_q = self.n_slots // n
+        for pool in _pools(self.cache):
+            # rank q's pages: those its slots map (the block table is the
+            # same on every rank); a page's owner is the lowest rank mapping it
+            ids = pool["bt"][0].reshape(n_q, -1).long()
+            owner = torch.full((pool["kpos"].shape[1],), -1, dtype=torch.long,
+                               device=ids.device)
+            for q in reversed(range(n_q)):
+                owner[ids[q]] = q
+            owner[paging.SCRATCH_PAGE] = -1
+            for name in ("k", "v", "kpos"):
+                leaf = pool[name]
+                parts = C.gather_cat(leaf[:, ids[lo // n]][None].contiguous(), self.mesh, dp,
+                                     dim=0)
+                for q in range(n_q):
+                    sel = owner[ids[q]] == q
+                    leaf[:, ids[q][sel]] = parts[q][:, sel]
 
     @property
     def n_alloc_pages(self) -> int:
@@ -249,7 +335,7 @@ class SlotKVCache:
         return list(self._slot_pages.get(slot, ()))
 
     def pool_bytes(self) -> int:
-        """Device bytes held by the pool cache."""
+        """Device bytes the pool holds (on every rank of a mesh)."""
         return sum(t.numel() * t.element_size() for t in T.leaves(self.cache))
 
     # -- slot lifecycle -------------------------------------------------------
@@ -411,15 +497,19 @@ class SlotKVCache:
 
     def reset_all(self) -> None:
         """Every slot and page free, the pool pristine: allocated on the
-        first call, filled in place after."""
+        first call (with its specs on a mesh), filled in place after."""
         if self.cache is None:
             kw = (dict(page=self.page, n_pages=self.n_pages) if self.paged else {})
             self.cache = zoo.make_cache(self.cfg, self.n_slots, self.max_seq, **kw,
                                         **self._cache_kw)
+            if self.mesh is not None:
+                self.specs = shd.cache_specs(self.cache, self.mesh, self.cfg)
         else:
             zoo.reset_cache(self.cfg, self.cache)
         if self.paged:
-            self._free_pages = collections.deque(range(paging.N_RESERVED, self.n_pages))
+            self._free_pages = [collections.deque() for _ in range(self._n_shards)]
+            for p in range(paging.N_RESERVED, self.n_pages):
+                self._free_pages[p // self._pages_per_shard].append(p)
             self._page_ref[:] = 0
             self._slot_pages: dict[int, list[int]] = {}
             self.cow_copies = 0

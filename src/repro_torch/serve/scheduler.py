@@ -105,11 +105,29 @@ fused loop rolls back from the snapshots in its own body, the unfused
 chain from the verify program's static `_verify_undo` buffers.  It has
 no prefix sharing.
 
-What waits for later slices: multi-device meshes.
+With ``mesh=`` (a `DeviceMesh`, one process per rank, every rank running
+this host loop on the same requests) the same loop runs sharded, as the
+reference's.  The params are replicated (broadcast from rank 0), and so
+is the pool's storage (`SlotKVCache(mesh=)`: its page ids are drawn from
+one free list a dp rank, as the reference's page-sharded pool draws them),
+so every program and K2 run over the whole pool as off a mesh.  The decode
+chunk runs data-parallel: each dp rank steps its own slots
+(`data_parallel`) and draws their tokens, and each step's next tokens are
+all-gathered, so every rank's host sees the whole batch; prefill, the
+speculative programs and the extension run the whole batch on every rank.
+Every host decision (admission, pages, harvest) rests on host state alone
+— the requests, the tokens, the page lists — never on a clock or an
+event's completion, so the ranks decide alike.  The programs hold
+collectives and run eagerly (``serve_eager_programs{reason="mesh"}``
+counts them; the flight ``config`` event says ``graphs: "eager"``).  The
+reference defers K2 to its gather path on a page-sharded pool, which its
+kernel cannot walk; the port's pool is whole on every rank, so nothing is
+deferred for it.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 
 import numpy as np
@@ -119,6 +137,7 @@ from repro_torch import perf_knobs
 from repro_torch import tree as T
 from repro_torch.core.types import PackedHiNM
 from repro_torch.device import resolve_device, to_device
+from repro_torch.distributed import collectives, sharding
 from repro_torch.models import zoo
 from repro_torch.serve import prng, sampler
 from repro_torch.serve import spec as spec_mod
@@ -145,6 +164,21 @@ def param_bytes(model) -> tuple[int, int]:
     return packed, dense
 
 
+def _broadcast_params(model) -> None:
+    """Every tensor of `model` (packed weights' fields included) from rank
+    0, in place: the replicated params of a sharded scheduler."""
+    import torch.distributed as dist
+
+    for mod in model.modules():
+        for t in mod._buffers.values():
+            if t is not None:
+                dist.broadcast(t, src=0)
+        w = mod.__dict__.get("w")
+        if isinstance(w, PackedHiNM):
+            for t in (w.vals, w.vec_idx, w.nm_idx):
+                dist.broadcast(t, src=0)
+
+
 class Scheduler:
     def __init__(self, cfg, params, max_slots: int = 4, max_seq: int = 512,
                  decode_chunk: int = 8, rng_seed: int = 0, policy: str = "continuous",
@@ -152,7 +186,8 @@ class Scheduler:
                  spec: spec_mod.SpecConfig | None = None, packed: str = "auto",
                  prefix_share: bool | str = "auto", prefill_chunk: int | None = None,
                  async_admission: bool | str = "auto", device="cuda", telemetry=None,
-                 flightrec=None, cache_kw: dict | None = None, bucket: bool | None = None):
+                 flightrec=None, cache_kw: dict | None = None, bucket: bool | None = None,
+                 mesh=None):
         if policy not in ("continuous", "static"):
             raise ValueError(f"unknown admission policy {policy!r}")
         if async_admission == "auto":
@@ -174,6 +209,14 @@ class Scheduler:
         self.bucket = can_bucket if bucket is None else bool(bucket)
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            import torch.distributed as dist
+
+            if (self.device.type == "cuda") != (dist.get_backend() == "nccl"):
+                raise ValueError(f"a {self.device.type} scheduler on a "
+                                 f"{dist.get_backend()!r} group: a CUDA mesh runs on NCCL, "
+                                 "a CPU one on gloo")
         # observability bundle (serve/telemetry): None/"auto" defers to
         # KNOBS.telemetry (off by default).  The registry is live either
         # way: the instruments counted per program built or per decision
@@ -209,6 +252,8 @@ class Scheduler:
         # projection through hinm_spmm; "auto" serves the weights as given
         if packed == "pack":
             params = zoo.pack_params(cfg, params)
+        if mesh is not None:
+            _broadcast_params(params)
         self.params = params
         self.max_slots = max_slots
         self.max_seq = max_seq
@@ -225,8 +270,15 @@ class Scheduler:
         if spec is not None:
             self._check_spec(spec, rng_seed)
         self.kv = SlotKVCache(cfg, max_slots, max_seq, page=page, n_pages=n_pages,
-                              device=self.device, metrics=m, flight=self.flight,
+                              device=self.device, mesh=mesh, metrics=m, flight=self.flight,
                               **(cache_kw or {}))
+        # the decode chunk's lanes on this rank: its slots where the dp ranks
+        # divide the pool, every slot (the whole batch on each rank) else
+        self._lanes_lo, self._lanes_hi = 0, max_slots
+        if mesh is not None:
+            i, n = collectives.dp_rank(mesh)
+            if max_slots % n == 0:
+                self._lanes_lo, self._lanes_hi = i * max_slots // n, (i + 1) * max_slots // n
         # an encoder-decoder's pool keeps each slot's encoder output at the
         # fixed width t_enc (`cache_kw={"t_enc": ...}` sizes it to the
         # workload's frames)
@@ -278,7 +330,10 @@ class Scheduler:
         self._pending_slots = 0
         self._pending_pages = 0
         self._chunk_in_flight = False
-        self.graphs = GraphCache(self.device, on_build=self._on_build)
+        # a sharded scheduler's bodies hold collectives: they run eagerly
+        self.graphs = GraphCache(self.device, on_build=self._on_build, eager=mesh is not None)
+        if mesh is not None:
+            self._m_eager = m.counter("serve_eager_programs", labels={"reason": "mesh"})
         self._prefill_io: dict[tuple, dict] = {}
         self._queue: collections.deque[Request] = collections.deque()
         self._running: dict[int, Request] = {}
@@ -293,6 +348,7 @@ class Scheduler:
             spec_cfg = None if spec is None else {
                 "k": spec.k, "fused": bool(spec.fused), "cycles": self._spec_cycles,
                 "drafter": self.drafter.kind}
+            extra = {} if mesh is None else {"graphs": "eager"}
             self.flight.emit(
                 "config", family=cfg.family, vocab=int(cfg.vocab), max_slots=max_slots,
                 max_seq=max_seq, decode_chunk=decode_chunk, policy=policy,
@@ -300,7 +356,7 @@ class Scheduler:
                 n_pages=self.kv.n_pages if self.kv.paged else None, bucket=self.bucket,
                 packed=packed, paged_attn=self.paged_attn, prefix_share=self.prefix_share,
                 prefill_chunk=self.prefill_chunk, async_admission=self.async_admission,
-                rng_seed=rng_seed, sharded=False, spec=spec_cfg)
+                rng_seed=rng_seed, sharded=mesh is not None, spec=spec_cfg, **extra)
 
     def _on_build(self, key) -> None:
         """`GraphCache` is building `key`'s program: a prefill program counts
@@ -315,6 +371,8 @@ class Scheduler:
         def run():
             with perf_knobs.knobs(paged_attn=self.paged_attn):
                 body()
+        if self.mesh is not None:
+            self._m_eager.inc()
         self.graphs.run(key, run)
 
     def _check_spec(self, spec, rng_seed: int) -> None:
@@ -350,8 +408,11 @@ class Scheduler:
             # the draft model keeps its own stripe pool, rolled back in
             # lockstep with the target, so both pools always hold the same
             # committed token stream
+            if self.mesh is not None:
+                _broadcast_params(d.params)
             self.draft_kv = SlotKVCache(d.cfg, self.max_slots, self.max_seq,
-                                        device=self.device, metrics=self.telemetry.registry,
+                                        device=self.device, mesh=self.mesh,
+                                        metrics=self.telemetry.registry,
                                         metrics_labels={"pool": "draft"}, flight=self.flight,
                                         flight_label="draft")
 
@@ -1110,14 +1171,16 @@ class Scheduler:
         sampled = [r for r in self._running.values() if r.params.temperature > 0]
         return bool(sampled), any(r.params.spec_accept == "reject" for r in sampled)
 
-    def _draw(self, logits: torch.Tensor, gens: torch.Tensor, stochastic: bool):
+    def _draw(self, logits: torch.Tensor, gens: torch.Tensor, stochastic: bool,
+              lanes: slice = slice(None)):
         """Each slot's next token from its (B, V) f32 logits at token index
         `gens`: its own sampling parameters, or argmax for an all-greedy
-        pool."""
+        pool.  `lanes`: the slots the rows are (all by default)."""
         if not stochastic:
             return sampler.greedy(logits)
-        keys = sampler.fold_keys(self._key, self._seeds, gens)
-        return sampler.sample(keys, logits, self._temp, self._topk, self._topp)
+        keys = sampler.fold_keys(self._key, self._seeds[lanes], gens[lanes])
+        return sampler.sample(keys, logits, self._temp[lanes], self._topk[lanes],
+                              self._topp[lanes])
 
     def _chunk_body(self, stochastic: bool, guarded: bool):
         """`decode_chunk` decode steps over the whole slot pool, into
@@ -1131,24 +1194,52 @@ class Scheduler:
         speculation takes: keep 0 for the `_protect` lanes, the whole chunk
         for the rest."""
         def body():
-            pos_entry = zoo.cache_position(self.cfg, self.kv.cache) if guarded else None
-            tok, active, rem, gens = self._tok, self._active, self._rem, self._gens
-            for i in range(self.decode_chunk):
-                logits = zoo.decode_step(self.params, self.cfg, tok, self.kv.cache)
-                nxt = self._draw(logits[:, : self._vocab].float(), gens, stochastic)
-                self._emits[i].copy_(torch.where(active, nxt, -1))
-                step = active.to(torch.int32)
-                gens = gens + step
-                rem = rem - step
-                hit_eos = active & (self._eos >= 0) & (nxt == self._eos)
-                active = active & ~hit_eos & (rem > 0)
-                tok = torch.where(active, nxt, tok[:, 0])[:, None]
-            self._store((tok, active, rem, gens))
-            if guarded:
-                keep = torch.where(self._protect, 0, self.decode_chunk).to(torch.int32)
-                zoo.cache_rollback(self.cfg, self.kv.cache, None, pos_entry, keep,
-                                   self.decode_chunk)
+            with self._decode_lanes() as (cache, lanes):
+                self._chunk_steps(cache, lanes, stochastic, guarded)
         return body
+
+    @contextlib.contextmanager
+    def _decode_lanes(self):
+        """(cache, lanes): the decode chunk's cache view and slots on this
+        rank — the whole pool and every slot off a mesh, the rank's own
+        slots over the whole pool on one (`SlotKVCache.data_parallel`)."""
+        lo, hi = self._lanes_lo, self._lanes_hi
+        if self.mesh is None:
+            yield self.kv.cache, slice(None)
+            return
+        with self.kv.data_parallel(lo, hi) as view:
+            yield view, slice(lo, hi)
+
+    def _gather_lanes(self, t: torch.Tensor, lanes: slice) -> torch.Tensor:
+        """The whole batch's rows of `t` from every dp rank's lanes."""
+        if lanes == slice(None) or lanes.stop - lanes.start == self.max_slots:
+            return t
+        dp = sharding.batch_axes(self.mesh)
+        return collectives.gather_cat(t, self.mesh, dp if len(dp) > 1 else dp[0], dim=0)
+
+    def _chunk_steps(self, cache, lanes: slice, stochastic: bool, guarded: bool) -> None:
+        """The chunk body's steps over `cache` (`_decode_lanes`): each step
+        decodes this rank's lanes, draws their tokens and all-gathers them;
+        the lane bookkeeping runs over the whole batch on every rank."""
+        pos_entry = zoo.cache_position(self.cfg, cache) if guarded else None
+        tok, active, rem, gens = self._tok, self._active, self._rem, self._gens
+        for i in range(self.decode_chunk):
+            logits = zoo.decode_step(self.params, self.cfg, tok[lanes], cache)
+            nxt = self._gather_lanes(
+                self._draw(logits[:, : self._vocab].float(), gens, stochastic, lanes),
+                lanes)
+            self._emits[i].copy_(torch.where(active, nxt, -1))
+            step = active.to(torch.int32)
+            gens = gens + step
+            rem = rem - step
+            hit_eos = active & (self._eos >= 0) & (nxt == self._eos)
+            active = active & ~hit_eos & (rem > 0)
+            tok = torch.where(active, nxt, tok[:, 0])[:, None]
+        self._store((tok, active, rem, gens))
+        if guarded:
+            keep = torch.where(self._protect, 0, self.decode_chunk).to(torch.int32)
+            zoo.cache_rollback(self.cfg, cache, None, pos_entry, keep[lanes],
+                               self.decode_chunk)
 
     def _store(self, state: tuple) -> None:
         """Write a (tok, active, rem, gens[, hist, hlen]) lane state back

@@ -7,7 +7,8 @@
     one;
   - per-step retry: a transient failure re-runs the step; a second one
     restores the last checkpoint and SKIPS the offending batch (the
-    standard poison-batch mitigation);
+    standard poison-batch mitigation); ``recover=False`` lets a failure
+    raise instead (a sharded step's collectives);
   - straggler detection: a step slower than `straggler_factor` x the
     rolling median calls `on_straggler`;
   - gradual HiNM pruning through a schedule callback that swaps the mask
@@ -39,6 +40,9 @@ class LoopConfig:
     straggler_factor: float = 3.0
     max_retries: int = 1
     log_every: int = 10
+    # False: a failing step raises instead of being retried or skipped (a
+    # sharded step holds collectives, which no rank may step past)
+    recover: bool = True
 
 
 @dataclasses.dataclass
@@ -87,7 +91,13 @@ def run(
                 state.masks = new_masks
         t0 = time.time()
         attempt = 0
-        while True:
+        while not cfg.recover:
+            out = step_fn(state.params, state.opt_state, state.masks, batch, state.step,
+                          state.comp_error)
+            state.params, state.opt_state, metrics = out[0], out[1], out[2]
+            state.comp_error = out[3] if len(out) > 3 else None
+            break
+        while cfg.recover:
             try:
                 if fail_injector is not None:
                     fail_injector(state.step)

@@ -233,7 +233,7 @@ def test_crash_dump_snapshots_pool_and_requests(setup, tmp_path):
     live = {p for pages in pool["block_tables"].values() for p in pages}
     assert all(pool["page_ref"][p] >= 1 for p in live)
     assert pool["n_free_pages"] + pool["n_referenced_pages"] == pool["n_pages"] - 2
-    assert sorted(pool["free_pages"][0]) == sorted(sched.kv._free_pages)
+    assert sorted(pool["free_pages"][0]) == sorted(sched.kv._free_pages[0])
     assert crash["prefix_index_pages"] == sched.prefix.n_pages
     assert crash["events_tail"] and crash["events_dropped"] == 0
     with open(sched.flight.crash_path) as f:
